@@ -1,0 +1,83 @@
+"""Carry `repro`'s state across to the port.
+
+The port's counterpart of loading weights: it takes numpy arrays (the
+leaves of `repro`'s `JaxTopology`, `HallState` and `FleetTrace`, as
+`np.asarray` gives them) and returns the port's batched tensors on a
+given device.  Each leaf may be one configuration's (the batch axis is
+added) or already carry the leading configuration axis.  Leaves that
+only the pod and row-subset paths read (`row_domain`, `hd_index`) are
+not taken: those paths are not ported.  Only numpy
+crosses over: nothing of `repro` or `jax` is imported here.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from .core.fleet import FleetTrace
+from .core.placement import HallState, Topology, check_hall_blocks
+
+# field -> (dtype, ndim of one configuration's leaf)
+_TOPOLOGY = {
+    "row_cap": (torch.float32, 2), "row_feeds": (torch.int32, 2),
+    "row_nfeeds": (torch.int32, 1), "row_is_hd": (torch.bool, 1),
+    "row_hall": (torch.int64, 1), "lineup_cap": (torch.float32, 1),
+    "lineup_is_active": (torch.bool, 1), "lineup_hall": (torch.int32, 1),
+    "hall_liq_cap": (torch.float32, 1), "ha_frac": (torch.float32, 0),
+    "is_block": (torch.bool, 0),
+}
+_STATE = {
+    "row_load": (torch.float32, 2), "lineup_ha": (torch.float32, 1),
+    "lineup_tot": (torch.float32, 1), "hall_liq": (torch.float32, 1),
+    "rr_cursor": (torch.int32, 0),
+}
+_TRACE = {
+    "month": (torch.int32, 1), "rack_kw": (torch.float32, 1),
+    "n_racks": (torch.int32, 1), "is_gpu": (torch.bool, 1),
+    "is_pod": (torch.bool, 1), "tier": (torch.int32, 1),
+    "harvest_frac": (torch.float32, 1), "lifetime_m": (torch.int32, 1),
+}
+
+
+def _convert(leaves: Mapping[str, np.ndarray], spec, device):
+    missing = set(spec) - set(leaves)
+    if missing:
+        raise KeyError(f"missing leaves: {sorted(missing)}")
+    batched = None
+    out = {}
+    for name, (dtype, ndim) in spec.items():
+        a = np.asarray(leaves[name])
+        if a.ndim not in (ndim, ndim + 1):
+            raise ValueError(f"`{name}` has {a.ndim} axes, expected {ndim} "
+                             f"(one configuration) or {ndim + 1} (batched)")
+        is_batched = a.ndim == ndim + 1
+        if batched is None:
+            batched = is_batched
+        elif batched != is_batched:
+            raise ValueError(f"`{name}` mixes batched and unbatched leaves")
+        if not is_batched:
+            a = a[None]
+        if a.dtype == np.float64:
+            raise TypeError(f"`{name}` is float64; the port computes in "
+                            "float32")
+        out[name] = torch.as_tensor(np.array(a), dtype=dtype,
+                                    device=device)
+    return out
+
+
+def topology_from_numpy(leaves: Mapping[str, np.ndarray], device) -> Topology:
+    """`repro` `JaxTopology` leaves → the port's `Topology` (line-ups
+    grouped by hall in contiguous blocks, see `check_hall_blocks`)."""
+    return check_hall_blocks(Topology(**_convert(leaves, _TOPOLOGY, device)))
+
+
+def state_from_numpy(leaves: Mapping[str, np.ndarray], device) -> HallState:
+    """`repro` `HallState` leaves → the port's `HallState`."""
+    return HallState(**_convert(leaves, _STATE, device))
+
+
+def trace_from_numpy(leaves: Mapping[str, np.ndarray], device) -> FleetTrace:
+    """`repro` `FleetTrace` leaves → the port's `FleetTrace`."""
+    return FleetTrace(**_convert(leaves, _TRACE, device))

@@ -1,0 +1,374 @@
+"""Batched fleet-sweep engine (paper §5–6 evaluation methodology).
+
+The counterpart of `repro.core.sweep` for pod-free grids.  Every
+configuration's topology is padded to a common shape, traces are padded
+to a common event count, and `fleet.simulate_lifecycle` runs the whole
+`SweepAxes` batch on one device as one batched state:
+
+    axes = SweepAxes.product(designs=[get_design("4N/3"), get_design("3+1")],
+                             envs=[EnvelopeSpec(gpu_scenario=s)
+                                   for s in ("med", "high")])
+    res = sweep(axes)                      # on the card; device="cpu" too
+    res.p90_stranding[i, -1], res.effective_dpm[i], res.result(i) ...
+
+`sharded_sweep` (configurations split over several cards) waits for
+ROADMAP queue 1, item 9.
+"""
+from __future__ import annotations
+
+import itertools
+from dataclasses import dataclass, field
+from types import SimpleNamespace
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from . import cost, placement as pl, throughput as tp
+from .arrivals import EnvelopeSpec, Trace, generate_fleet_trace
+from .fleet import (_PODS_TODO, FleetResult, FleetTrace, _auto_halls,
+                    _event_windows, _month_e_max, make_fleet_result,
+                    simulate_lifecycle)
+from .hierarchy import DesignSpec, SweepValidationError, build_topology
+from .placement import DEFAULT_POLICY, POLICY_NAMES, POLICY_RANDOM
+from ..device import resolve_device
+
+
+def _broadcast(seq, B, name):
+    seq = list(seq)
+    if len(seq) == 1:
+        seq = seq * B
+    if len(seq) != B:
+        raise SweepValidationError(
+            name, f"has length {len(seq)}, expected {B} (the batch size) "
+            f"or 1 (broadcast)")
+    return seq
+
+
+@dataclass
+class SweepAxes:
+    """The configuration batch: four aligned per-configuration lists of
+    equal length ``B`` (length-1 lists broadcast), configuration ``i``
+    being ``(designs[i], envs[i], policies[i], seeds[i])``.  Build with
+    `SweepAxes.zip` (aligned sequences) or `SweepAxes.product` (full cross
+    product, designs-major, seeds fastest).  `tags` are free-form
+    per-configuration labels carried along for reporting."""
+    designs: List[DesignSpec]
+    envs: List[EnvelopeSpec]
+    policies: List[int]
+    seeds: List[int]
+    tags: List[str] = field(default_factory=lambda: [""])
+
+    def __len__(self):
+        return len(self.designs)
+
+    def __post_init__(self):
+        B = max(len(self.designs), len(self.envs), len(self.policies),
+                len(self.seeds), len(self.tags))
+        self.designs = _broadcast(self.designs, B, "designs")
+        self.envs = _broadcast(self.envs, B, "envs")
+        self.policies = [int(p) for p in _broadcast(self.policies, B,
+                                                    "policies")]
+        self.seeds = [int(s) for s in _broadcast(self.seeds, B, "seeds")]
+        self.tags = [str(t) for t in _broadcast(self.tags, B, "tags")]
+
+    @staticmethod
+    def zip(designs, envs, policies=(DEFAULT_POLICY,), seeds=(0,),
+            tags=("",)) -> "SweepAxes":
+        """Aligned per-configuration sequences (length-1 broadcasts)."""
+        return SweepAxes(list(designs), list(envs), list(policies),
+                         list(seeds), list(tags))
+
+    @staticmethod
+    def product(designs: Sequence[DesignSpec], envs: Sequence[EnvelopeSpec],
+                policies: Sequence[int] = (DEFAULT_POLICY,),
+                seeds: Sequence[int] = (0,),
+                env_tags: Sequence[str] | None = None) -> "SweepAxes":
+        """Full grid, designs-major ordering; `env_tags` (aligned with
+        `envs`) label each envelope through the cross product."""
+        env_tags = list(env_tags) if env_tags is not None else [""] * len(envs)
+        if len(env_tags) != len(envs):
+            raise ValueError(f"env_tags has length {len(env_tags)}, "
+                             f"expected {len(envs)}")
+        combos = list(itertools.product(designs, zip(envs, env_tags),
+                                        policies, seeds))
+        return SweepAxes([c[0] for c in combos], [c[1][0] for c in combos],
+                         [c[2] for c in combos], [c[3] for c in combos],
+                         [c[1][1] for c in combos])
+
+    def validate(self) -> "SweepAxes":
+        """Raise before any device work: `SweepValidationError` on an
+        invalid design, envelope, policy id or mixed horizons, and
+        `NotImplementedError` for the random policy, whose Threefry draws
+        are not ported yet (ROADMAP queue 1, item 3)."""
+        if len(self) == 0:
+            raise SweepValidationError(
+                "designs", "empty sweep: zero configurations")
+        seen: set = set()
+        for d in self.designs:
+            if id(d) not in seen:
+                seen.add(id(d))
+                d.validate()
+        for e in self.envs:
+            if id(e) not in seen:
+                seen.add(id(e))
+                e.validate()
+        for i, p in enumerate(self.policies):
+            if not 0 <= p < len(POLICY_NAMES):
+                raise SweepValidationError(
+                    "policies", f"policies[{i}] = {p} outside "
+                    f"[0, {len(POLICY_NAMES)}); have {POLICY_NAMES}")
+            if p == POLICY_RANDOM:
+                raise NotImplementedError(
+                    f"policies[{i}] is the random policy, which needs the "
+                    "bit-exact port of jax.random's Threefry-2x32 (ROADMAP "
+                    "queue 1, item 3)")
+        horizons = {(e.start_year, e.end_year) for e in self.envs}
+        if len(horizons) > 1:
+            raise SweepValidationError(
+                "envs", f"envelopes span different horizons: "
+                f"{sorted(horizons)}; the lifecycle needs one common "
+                f"month count")
+        return self
+
+
+@dataclass
+class SweepResult:
+    """Per-configuration metrics, leading axis = configuration."""
+    axes: SweepAxes
+    months: np.ndarray             # [M]
+    halls_active: np.ndarray       # [B, M]
+    deployed_mw: np.ndarray        # [B, M]
+    p50_stranding: np.ndarray      # [B, M]
+    p90_stranding: np.ndarray      # [B, M]
+    final_hall_stranding: np.ndarray    # [B, H_max] (use n_halls_built)
+    final_lineup_stranding: np.ndarray  # [B, X_tot]
+    lineup_is_active: np.ndarray   # [B, X_tot]
+    lineups_per_hall: int          # common padded per-hall line-up count
+    n_halls_built: np.ndarray      # [B] int
+    final_deployed_mw: np.ndarray  # [B]
+    placed_fraction: np.ndarray    # [B]
+    initial_dpm: np.ndarray        # [B] $/MW at commissioning
+    effective_dpm: np.ndarray      # [B] lifecycle-effective $/MW
+    total_capex: np.ndarray        # [B] $
+    # --- metric stage (paper §5.4/§6.6: $/performance, not installed MW) ---
+    provisioned_mw: np.ndarray = None   # [B] halls built × HA nameplate
+    model_names: List[str] = field(default_factory=list)   # [Mdl]
+    delivered_tps: np.ndarray = None         # [B, Mdl] fleet tokens/s
+    tps_per_provisioned_w: np.ndarray = None  # [B, Mdl] tokens/s per built W
+    dollars_per_tps: np.ndarray = None       # [B, Mdl] capex / delivered TPS
+    # --- the port's own: registry and run facts ---
+    act_month: np.ndarray = None   # [B, H_max] hall opening month (-1)
+    reg_rows: np.ndarray = None    # [B, E_max] row each event landed in
+    event_steps: int = 0           # placement steps run (kernel launches)
+    device: str = ""               # where the lifecycle ran
+
+    def __len__(self):
+        return len(self.axes)
+
+    @property
+    def tags(self) -> List[str]:
+        """Per-configuration labels (see `SweepAxes.tags`)."""
+        return self.axes.tags
+
+    def result(self, i: int) -> FleetResult:
+        """Unpack configuration `i` into a sequential-style FleetResult."""
+        out = SimpleNamespace(
+            halls_active=self.halls_active[i],
+            deployed_kw=self.deployed_mw[i] * 1e3,
+            p50_stranding=self.p50_stranding[i],
+            p90_stranding=self.p90_stranding[i],
+            final_hall_stranding=self.final_hall_stranding[i],
+            final_lineup_stranding=self.final_lineup_stranding[i],
+            n_halls_built=self.n_halls_built[i],
+            final_deployed_kw=self.final_deployed_mw[i] * 1e3,
+            placed_fraction=self.placed_fraction[i])
+        return make_fleet_result(out, len(self.months),
+                                 self.lineups_per_hall,
+                                 self.lineup_is_active[i],
+                                 self.axes.designs[i], self.axes.envs[i])
+
+
+def _prepare(axes: SweepAxes, n_halls_max: int,
+             traces: Sequence[Trace] | None, device):
+    """Host-side batch assembly: pads every configuration to common
+    shapes, bucketed as `repro` buckets them (hall cap to 4, trace events
+    to 64, per-month event windows to 4; rows/line-ups per hall to the
+    largest design).  Returns (jt, ft, idx, valid, h_caps, n_real, months,
+    topos, X_pad)."""
+    axes.validate()
+    B = len(axes)
+    months = axes.envs[0].n_months
+
+    if traces is None:
+        traces = [generate_fleet_trace(e, s)
+                  for e, s in zip(axes.envs, axes.seeds)]
+    if len(traces) != B:
+        raise SweepValidationError(
+            "traces", f"need one trace per configuration: got "
+            f"{len(traces)} traces for {B} configurations")
+    if any(bool(np.asarray(t.is_pod).any()) for t in traces):
+        raise NotImplementedError(_PODS_TODO)
+
+    def bucket(n, q):
+        return int(np.ceil(max(n, 1) / q) * q)
+
+    h_caps = [n_halls_max or _auto_halls(d, e)
+              for d, e in zip(axes.designs, axes.envs)]
+    H_max = bucket(max(h_caps), 4)
+    R_pad = max(d.n_rows for d in axes.designs)
+    X_pad = max(d.n_lineups for d in axes.designs)
+    topos = [build_topology(d, H_max, rows_per_hall=R_pad,
+                            lineups_per_hall=X_pad) for d in axes.designs]
+    jt = pl.topology(topos, device)
+
+    E_max = bucket(max(len(t) for t in traces), 64)
+    ft = FleetTrace.from_traces(traces, pad_to=E_max, pad_month=months)
+    e_max = bucket(max(_month_e_max(t, months) for t in traces), 4)
+    windows = [_event_windows(t, months, False, e_max=e_max, modulo=E_max)
+               for t in traces]
+    idx = np.stack([w[0] for w in windows])
+    valid = np.stack([w[1] for w in windows])
+    n_real = [len(t) for t in traces]
+    return jt, ft, idx, valid, h_caps, n_real, months, topos, X_pad
+
+
+def serving_tpw_rows(envs: Sequence[EnvelopeSpec],
+                     models: Sequence[tp.MoEModel],
+                     metric_year: int | None = None) -> np.ndarray:
+    """[B, Mdl] serving tokens/s-per-watt rows for a batch of envelopes.
+
+    Each envelope implies one serving deployment (`tp.serving_deployment`
+    at `metric_year`, default its `end_year`, at its placement quantum);
+    rows are gathered from one `tps_per_watt_grid` over the unique set."""
+    keys = [(int(metric_year or e.end_year), e.gpu_scenario,
+             max(int(e.pod_racks), 1),
+             bool(e.pod_scale_arch or e.pod_racks > 1)) for e in envs]
+    uniq = sorted(set(keys))
+    deps = [tp.serving_deployment(*k) for k in uniq]
+    grid = np.asarray(tp.tps_per_watt_grid(models, deps))
+    row = {k: grid[i] for i, k in enumerate(uniq)}
+    return np.stack([row[k] for k in keys])
+
+
+def gpu_power_share(env: EnvelopeSpec) -> float:
+    """Fraction of deployed MW that is GPU serving capacity (the rest is
+    general compute / storage and delivers no tokens)."""
+    total = env.gpu_gw + env.compute_gw + env.storage_gw
+    return env.gpu_gw / total if total > 0 else 0.0
+
+
+def _metric_stage(axes: SweepAxes, models, metric_year,
+                  deployed_mw: np.ndarray, provisioned_mw: np.ndarray,
+                  capex: np.ndarray):
+    """Batched throughput/cost columns over final deployed capacity:
+    (model_names, delivered_tps, tps_per_provisioned_w, dollars_per_tps),
+    each [B, Mdl].  NaN marks undefined ratios, never inf."""
+    models = (tp.MODEL_SUITE if models is None
+              else tuple(tp.resolve_model(m) for m in models))
+    B = len(axes)
+    if not models:
+        empty = np.zeros((B, 0))
+        return [], empty, empty.copy(), empty.copy()
+    tpw = serving_tpw_rows(axes.envs, models, metric_year)
+    share = np.array([gpu_power_share(e) for e in axes.envs])
+    delivered = tpw * (deployed_mw * 1e6 * share)[:, None]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        tps_per_pw = np.where(provisioned_mw[:, None] > 0,
+                              delivered / (provisioned_mw[:, None] * 1e6),
+                              np.nan)
+        dpt = np.where(delivered > 0, capex[:, None] / delivered, np.nan)
+    return [m.name for m in models], delivered, tps_per_pw, dpt
+
+
+def _finalize(out, axes: SweepAxes, months: int, topos, X_pad: int,
+              models=None, metric_year: int | None = None,
+              device: str = "") -> SweepResult:
+    """Host-side unpack of the batched outputs plus the cost model and
+    the metric stage into a `SweepResult`."""
+    host = {k: (v.cpu().numpy() if torch.is_tensor(v) else v)
+            for k, v in out._asdict().items()}
+    n_built = host["n_halls_built"].astype(int)
+    deployed_mw = host["final_deployed_kw"] / 1e3
+    initial = np.array([cost.initial_dollars_per_mw(d)
+                        for d in axes.designs])
+    effective = np.array([
+        cost.effective_dollars_per_mw(d, int(n), float(mw))
+        for d, n, mw in zip(axes.designs, n_built, deployed_mw)])
+    capex = np.array([int(n) * cost.hall_capex(d)
+                      for d, n in zip(axes.designs, n_built)])
+    provisioned = np.array([int(n) * d.ha_capacity_kw / 1e3
+                            for d, n in zip(axes.designs, n_built)])
+    names, delivered, tps_per_pw, dpt = _metric_stage(
+        axes, models, metric_year, deployed_mw, provisioned, capex)
+    return SweepResult(
+        axes=axes,
+        months=np.arange(months),
+        halls_active=host["halls_active"],
+        deployed_mw=host["deployed_kw"] / 1e3,
+        p50_stranding=host["p50_stranding"],
+        p90_stranding=host["p90_stranding"],
+        final_hall_stranding=host["final_hall_stranding"],
+        final_lineup_stranding=host["final_lineup_stranding"],
+        lineup_is_active=np.stack([np.asarray(t.lineup_is_active)
+                                   for t in topos]),
+        lineups_per_hall=X_pad,
+        n_halls_built=n_built,
+        final_deployed_mw=deployed_mw,
+        placed_fraction=host["placed_fraction"],
+        initial_dpm=initial,
+        effective_dpm=effective,
+        total_capex=capex,
+        provisioned_mw=provisioned,
+        model_names=names,
+        delivered_tps=delivered,
+        tps_per_provisioned_w=tps_per_pw,
+        dollars_per_tps=dpt,
+        act_month=host["act_month"],
+        reg_rows=host["reg_rows"],
+        event_steps=host["event_steps"],
+        device=device,
+    )
+
+
+def sweep(axes: SweepAxes, harvest: bool = True, mature_months: int = 12,
+          n_halls_max: int = 0, traces: Sequence[Trace] | None = None,
+          models=None, metric_year: int | None = None, device="cuda",
+          interpret: bool = False, exact_quantiles: bool = True
+          ) -> SweepResult:
+    """Evaluate every configuration in `axes` as one batched lifecycle.
+
+    All envelopes must share one buildout horizon.  Padding is inert:
+    padded rows have zero capacity (never feasible), padded line-ups are
+    inactive, and padded trace events arrive after the horizon.
+    `result(i)` recovers the `FleetResult` of configuration `i`.
+
+    Args:
+        axes: the configuration batch (see `SweepAxes`).
+        harvest: harvest one-year-old racks (static across the batch).
+        mature_months: hall age before it enters tail stranding stats.
+        n_halls_max: hall cap; 0 auto-sizes per configuration.
+        traces: optional pre-generated per-configuration arrival traces
+            (defaults to `generate_fleet_trace(envs[i], seeds[i])`);
+            pod-free only.
+        models: Table 2 models (objects or names) for the $/performance
+            metric stage (default `throughput.MODEL_SUITE`; `()` skips
+            the stage).
+        metric_year: serving-deployment year for the metric stage
+            (default: each envelope's `end_year`).
+        device: where the lifecycle runs (default ``"cuda"``; the CPU
+            only when asked for).
+        interpret: score rows with the kernel's plain version instead of
+            launching the CUDA kernel.
+        exact_quantiles: only `True` is ported (ROADMAP queue 1, item 6).
+    """
+    dev = resolve_device(device)
+    jt, ft, idx, valid, h_caps, n_real, months, topos, X_pad = _prepare(
+        axes, n_halls_max, traces, dev)
+    out = simulate_lifecycle(
+        jt, ft, idx, valid, pl.policy_tensor(axes.policies, dev), h_caps,
+        n_real, harvest=harvest, mature_months=mature_months,
+        exact_quantiles=exact_quantiles, interpret=interpret)
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    return _finalize(out, axes, months, topos, X_pad, models=models,
+                     metric_year=metric_year, device=name)
