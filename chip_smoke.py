@@ -3,17 +3,29 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the checkout, holds it against its
-plain PyTorch version, checks a small sweep on the card against the same
-sweep on the CPU, then drives the main path: the `fleet_study` grid (the
-four reference designs × low/med/high GPU TDP scenarios, 12
-configurations at demand_scale 0.1, policy var_min) through
-`repro_torch.core.sweep.sweep` on the card.  It fails, and prints no
-result, without a CUDA device or without the port beside it.  The last
-line of its output is a JSON object naming the device; the line before
-it names the card and its power limit as `nvidia-smi` gives them, and
-one line before that lists each kernel with its launches, error, times
-and bound.
+Builds the port's CUDA kernels from the checkout (one `nvcc` per source,
+in parallel) and holds each against its plain PyTorch version at the
+shapes its main path gives it.  Then it drives the port's two main paths
+on the card, each with the kernel launch counts set to 0 just before it
+and read just after:
+
+* the fleet sweep: a small sweep on the card against the same sweep on
+  the CPU, then the `fleet_study` grid (the four reference designs ×
+  low/med/high GPU TDP scenarios, 12 configurations at demand_scale 0.1,
+  policy var_min) through `repro_torch.core.sweep.sweep`; it launches
+  `placement_score` once per event step;
+* Mamba2-2.7B serving: `smoke_config()` served on the CPU and on the card
+  (float32), then the full-width model (64 layers, d_model 2560, bf16
+  weights drawn from a generator seeded with 0) behind `ServeEngine`
+  with 4 slots, 8 requests of 1024 prompt tokens and 32 new tokens each;
+  it launches `ssd_scan` once per layer per prefill.
+
+Float32 matrix products run in full float32 (TF32 off).  It fails, and
+prints no result, without a CUDA device or without the port beside it.
+The last line of its output is a JSON object naming the device; the line
+before it names the card and its power limit as `nvidia-smi` gives them,
+and one line before that lists each kernel with its launches, error,
+times and bound.
 """
 import json
 import os
@@ -24,8 +36,26 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12          # H100 SXM float32 outside tensor cores
+BF16_FLOP_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
 MAIN_SCALE = 0.1
 GOLDEN_SCALE = 0.005
+# serving main path: ServeEngine over mamba2-2.7b at full width
+SERVE = dict(batch_slots=4, prompt_len=1024, max_seq=1088)
+SERVE_REQUESTS, SERVE_NEW = 8, 32
+# the smoke golden: tests/test_launchers.py's serving traffic
+GOLDEN_SERVE = dict(batch_slots=2, prompt_len=8, max_seq=48)
+GOLDEN_REQUESTS, GOLDEN_NEW = 5, 8
+# ssd_scan check: kernel vs its plain version.  Both run the same float32
+# operations in the same order, so they are expected to agree bitwise; the
+# check allows 1e-5 of each output's largest magnitude.
+SSD_RTOL = 1e-5
+# full scan vs the naive per-step recurrence: float32 sums in another
+# order, over bf16 inputs both sides widen exactly
+SSD_NAIVE_RTOL = 1e-4
+# serving: prefill logits of the kernel run vs the interpret=True run
+# (bitwise expected, as above) and of the card vs the CPU at float32
+SERVE_LOGIT_ATOL = 5e-2
+GOLDEN_LOGIT_ATOL = 1e-4
 
 
 def card_line():
@@ -320,6 +350,297 @@ def main_path(dev):
           f"step)")
     return launches[0]
 
+# ---------------------------------------------------------------- ssd_scan
+
+def ssd_inputs(dev, S, seed, nh=80, hd=64, st=128):
+    """Mixer-like inputs at the main path's widths: bf16 xdt, B and C,
+    float32 log decays from slow heads (tens of steps) to fast ones."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    sp = lambda x: np.logaddexp(x, 0)
+    rate = np.exp(rng.uniform(-4, 1, nh))                  # per head
+    log_a = -sp(rng.standard_normal((1, S, nh))) * rate
+    xdt = 0.5 * rng.standard_normal((1, S, nh, hd))
+    b = 0.5 * rng.standard_normal((1, S, st))
+    c = 0.5 * rng.standard_normal((1, S, st))
+    t = lambda a, dt: torch.as_tensor(a.astype(np.float32), device=dev).to(dt)
+    bf = torch.bfloat16
+    return t(xdt, bf), t(log_a, torch.float32), t(b, bf), t(c, bf)
+
+
+def ssd_bound(S, Q=128, nh=80, hd=64, st=128):
+    """(bytes, flop) one intra-chunk launch must move and do: each input
+    read once, each output written once; y over the causal triangle, C·B
+    once per chunk, the decay (sub, exp, mul) per head, the chunk state."""
+    nC = -(-S // Q)
+    Sp = nC * Q
+    tri = Q * (Q + 1) // 2
+    n_bytes = (Sp * nh * hd * 2 + Sp * nh * 4 + 2 * Sp * st * 2     # in
+               + Sp * nh * hd * 4 + nC * nh * hd * st * 4 + nC * nh * 4)
+    n_flop = nC * (nh * tri * hd * 2 + tri * st * 2 + nh * tri * 3
+                   + nh * Q * hd * st * 2 + nh * Q * hd)
+    return n_bytes, n_flop
+
+
+def check_ssd_kernel(dev):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd_scan import kernel as ker
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import (reference_intra_chunk,
+                                                  reference_ssd)
+    Q = 128
+    worst = 0.0
+    for S in (1024, 1000):
+        args = ssd_inputs(dev, S, seed=S)
+        pad = (-S) % Q
+        padded = [F.pad(a, (0, 0) * (a.dim() - 2) + (0, pad)) for a in args]
+        got = ker.ssd_intra_chunk(*padded, Q)
+        want = reference_intra_chunk(*padded, Q)
+        torch.cuda.synchronize()
+        parts = []
+        for name, g, w in zip(("y_intra", "h_chunk", "a_chunk"), got, want):
+            if g.shape != w.shape or not torch.isfinite(g).all():
+                raise AssertionError(f"ssd_scan S={S}: `{name}` has shape "
+                                     f"{tuple(g.shape)} or is not finite")
+            err = float((g - w).abs().max())
+            scale = float(w.abs().max())
+            rel = err / scale if scale else err
+            if err > SSD_RTOL * scale:
+                raise AssertionError(
+                    f"ssd_scan S={S}: `{name}` differs from the plain "
+                    f"version by {err} (max |value| {scale})")
+            worst = max(worst, err)
+            parts.append(f"{name} {tuple(g.shape)} max abs err {err:.3e}, "
+                         f"max rel err {rel:.3e}, bitwise "
+                         f"{torch.equal(g, w)}")
+        y_k = ops.ssd_scan(*args, chunk=Q)
+        y_p = ops.ssd_scan(*args, chunk=Q, interpret=True)
+        torch.cuda.synchronize()
+        if y_k.shape != (1, S, 80, 64) or not torch.equal(y_k, y_p):
+            raise AssertionError(f"ssd_scan S={S}: the full scan through the "
+                                 "kernel differs from interpret=True")
+        print(f"kernel check: ssd_scan S={S} (pad {pad}), 80 heads x 64, "
+              f"state 128, chunk {Q}, bf16 inputs (tolerance {SSD_RTOL} of "
+              f"max |value|): " + "; ".join(parts)
+              + "; full scan equal to interpret=True")
+
+    args = ssd_inputs(dev, 256, seed=256)
+    y = ops.ssd_scan(*args, chunk=Q)
+    naive = reference_ssd(*args)
+    err, scale = float((y - naive).abs().max()), float(naive.abs().max())
+    if not err <= SSD_NAIVE_RTOL * scale:
+        raise AssertionError(f"ssd_scan S=256 vs the naive recurrence: max "
+                             f"abs err {err} (max |value| {scale})")
+    print(f"kernel check: ssd_scan S=256 full scan vs the naive recurrence: "
+          f"max abs err {err:.3e} of max |value| {scale:.3e} (tolerance "
+          f"{SSD_NAIVE_RTOL} of it)")
+
+    args = ssd_inputs(dev, 1024, seed=1024)
+    ms = device_time_ms(lambda: ker.ssd_intra_chunk(*args, Q), 50)
+    plain_ms = device_time_ms(lambda: reference_intra_chunk(*args, Q), 3)
+    n_bytes, n_flop = ssd_bound(1024)
+    t_bytes, t_flop = n_bytes / HBM_BYTES_PER_S, n_flop / FP32_FLOP_PER_S
+    by = "bytes" if t_bytes >= t_flop else "operations"
+    bound_s = max(t_bytes, t_flop)
+    tc_s = max(t_bytes, n_flop / BF16_FLOP_PER_S)
+    print(f"kernel time: ssd_scan S=1024: device time per call kernel "
+          f"{ms * 1e3:.3f} us, plain {plain_ms * 1e3:.3f} us; bound "
+          f"{bound_s * 1e6:.3f} us ({by}: {n_bytes} B at 3.35 TB/s = "
+          f"{t_bytes * 1e6:.3f} us, {n_flop} flop at 67 TFLOP/s float32 = "
+          f"{t_flop * 1e6:.3f} us); with bf16 tensor cores (989 TFLOP/s) "
+          f"the bound would be {tc_s * 1e6:.3f} us")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_s * 1e3, bound_by=by)
+
+
+# ---------------------------------------------------------------- serving
+
+class Recorder:
+    """Stands in for the model in one engine run: passes every call
+    through, times each prefill (synchronised) and keeps its logits, and
+    keeps whether every logit was finite."""
+
+    def __init__(self, model):
+        import torch
+        self.model, self.cfg, self.device = model, model.cfg, model.device
+        self.logits, self.prefill_s = [], []
+        self.finite = torch.ones((), dtype=torch.bool, device=model.device)
+
+    def _sync(self):
+        import torch
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def prefill(self, params, batch, max_seq):
+        import torch
+        self._sync()
+        t0 = time.perf_counter()
+        logits, caches = self.model.prefill(params, batch, max_seq)
+        self._sync()
+        self.prefill_s.append(time.perf_counter() - t0)
+        self.logits.append(logits)
+        self.finite &= torch.isfinite(logits).all()
+        return logits, caches
+
+    def decode_step(self, params, token, pos, caches):
+        import torch
+        logits, caches = self.model.decode_step(params, token, pos, caches)
+        self.finite &= torch.isfinite(logits).all()
+        return logits, caches
+
+    def init_caches(self, batch, max_seq):
+        return self.model.init_caches(batch, max_seq)
+
+
+def serve_once(model, params, prompts, engine_kw, max_new):
+    """One engine run over `prompts`: outputs, prefill logits, stats and
+    times."""
+    import torch
+    from repro_torch.serve.engine import Request, ServeEngine
+    rec = Recorder(model)
+    engine = ServeEngine(rec, params, **engine_kw)
+    reqs = [Request(rid, p, max_new_tokens=max_new)
+            for rid, p in enumerate(prompts)]
+    for r in reqs:
+        engine.submit(r)
+    rec._sync()
+    t0 = time.perf_counter()
+    steps = engine.run_until_drained()
+    rec._sync()
+    wall = time.perf_counter() - t0
+    if not bool(rec.finite):
+        raise AssertionError("serving: a logit is not finite")
+    if not all(r.done for r in reqs):
+        raise AssertionError("serving: a request did not finish")
+    return dict(outputs=[list(r.output) for r in reqs],
+                logits=torch.cat(rec.logits).float().cpu(),
+                stats=dict(engine.stats), steps=steps, wall=wall,
+                prefill_s=sum(rec.prefill_s))
+
+
+def serve_golden(dev):
+    """smoke_config() in float32 on the CPU and on the card, same
+    weights: the same tokens, prefill logits within GOLDEN_LOGIT_ATOL."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.mamba2_2p7b import smoke_config
+    from repro_torch.models.api import build_model
+    cfg = dataclasses.replace(smoke_config(), use_flash_kernel=True)
+    on_cpu = build_model(cfg, "cpu")
+    params = on_cpu.init(torch.Generator().manual_seed(0), torch.float32)
+
+    def to_dev(tree):
+        return {k: to_dev(v) if isinstance(v, dict) else v.to(dev)
+                for k, v in tree.items()}
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=8)
+               for _ in range(GOLDEN_REQUESTS)]
+    a = serve_once(on_cpu, params, prompts, GOLDEN_SERVE, GOLDEN_NEW)
+    b = serve_once(build_model(cfg, dev), to_dev(params), prompts,
+                   GOLDEN_SERVE, GOLDEN_NEW)
+    err = float((a["logits"] - b["logits"]).abs().max())
+    if a["outputs"] != b["outputs"] or a["stats"] != b["stats"]:
+        raise AssertionError("serving golden: tokens differ, CPU vs card")
+    if not err <= GOLDEN_LOGIT_ATOL:
+        raise AssertionError(f"serving golden: prefill logits differ by "
+                             f"{err}, CPU vs card")
+    print(f"serving golden: mamba2-2.7b smoke_config (2 layers, d_model 64) "
+          f"float32, {GOLDEN_REQUESTS} requests over 2 slots: CPU "
+          f"{a['wall']:.2f} s, card {b['wall']:.2f} s; tokens equal "
+          f"({a['stats']}); prefill logits max abs diff {err:.3e} "
+          f"(tolerance {GOLDEN_LOGIT_ATOL})")
+
+
+def serve_main_path(dev):
+    import dataclasses
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.mamba2_2p7b import CONFIG
+    from repro_torch.kernels.ssd_scan.kernel import ssd_intra_chunk
+    from repro_torch.models.api import build_model
+    cfg = dataclasses.replace(CONFIG, use_flash_kernel=True)
+    model = build_model(cfg, dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"serving: {cfg.name}, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.ssm_heads} SSM heads x {cfg.ssm_headdim}, "
+          f"state {cfg.ssm_state}, chunk {cfg.ssm_chunk}, vocab {cfg.vocab}:"
+          f" {model.n_params():,} bf16 parameters drawn in "
+          f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=SERVE["prompt_len"])
+               for _ in range(SERVE_REQUESTS)]
+    serve = lambda m: serve_once(m, params, prompts, SERVE, SERVE_NEW)
+
+    runs = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        ssd_intra_chunk.launches = 0
+        runs.append(serve(model))
+        runs[-1]["launches"] = ssd_intra_chunk.launches
+    launches = runs[0]["launches"]
+    want = runs[0]["stats"]["prefills"] * cfg.n_layers
+    if not launches == want == SERVE_REQUESTS * cfg.n_layers:
+        raise AssertionError(f"serving: {launches} ssd_scan launches for "
+                             f"{runs[0]['stats']['prefills']} prefills")
+    if runs[1]["outputs"] != runs[0]["outputs"] or \
+            not torch.equal(runs[1]["logits"], runs[0]["logits"]):
+        raise AssertionError("serving: a repeat run gave other tokens")
+    for out in runs[0]["outputs"]:
+        if len(out) != SERVE_NEW or not all(0 <= t < cfg.vocab for t in out):
+            raise AssertionError(f"serving: bad output {out}")
+    ssd_intra_chunk.launches = 0
+    plain = serve(build_model(cfg, dev, interpret=True))
+    if ssd_intra_chunk.launches != 0:
+        raise AssertionError("serving: interpret=True launched the kernel")
+    err = float((plain["logits"] - runs[0]["logits"]).abs().max())
+    if plain["outputs"] != runs[0]["outputs"]:
+        raise AssertionError("serving: interpret=True gave other tokens")
+    if not err <= SERVE_LOGIT_ATOL:
+        raise AssertionError(f"serving: prefill logits of interpret=True "
+                             f"differ by {err}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for i, r in enumerate(runs):
+        st = r["stats"]
+        decode_s = r["wall"] - r["prefill_s"]
+        print(f"serving run {i + 1}: {st['prefills']} prefills of "
+              f"{SERVE['prompt_len']} tokens, {st['decode_steps']} decode "
+              f"steps over {SERVE['batch_slots']} slots, {r['steps']} engine "
+              f"steps; wall {r['wall']:.3f} s; prefill "
+              f"{r['prefill_s'] / st['prefills'] * 1e3:.2f} ms per request; "
+              f"decode {decode_s / st['decode_steps'] * 1e3:.2f} ms per step;"
+              f" {st['tokens'] / r['wall']:.1f} tokens/s (prompt + "
+              f"generated), {SERVE_REQUESTS * SERVE_NEW / r['wall']:.1f} "
+              f"generated tokens/s")
+    print(f"serving: ssd_scan launches {launches} (= {SERVE_REQUESTS} "
+          f"prefills x {cfg.n_layers} layers); repeat bitwise equal; "
+          f"interpret=True run ({plain['wall']:.3f} s wall, prefill "
+          f"{plain['prefill_s'] / SERVE_REQUESTS * 1e3:.2f} ms per request) "
+          f"gave the same tokens, prefill logits max abs diff {err:.3e} "
+          f"(tolerance {SERVE_LOGIT_ATOL}); every logit finite; peak "
+          f"device memory {peak:.2f} GiB; first tokens "
+          f"{[o[:4] for o in runs[0]['outputs'][:2]]}")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prof_run = serve(model)
+        torch.cuda.synchronize()
+    busy, by_name = device_activity(prof)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    for name, (calls, secs) in top:
+        print(f"  device {secs:8.4f} s {calls:8d} calls  {name[:90]}")
+    print(f"serving profiled (card activity): {prof_run['wall']:.3f} s wall, "
+          f"device busy {busy:.3f} s, idle share "
+          f"{1 - busy / prof_run['wall']:.3f}, "
+          f"{sum(c for c, _ in by_name.values())} kernels and copies")
+    return launches
+
 
 def main():
     try:
@@ -338,6 +659,10 @@ def main():
         print(f"chip_smoke: the port is not beside this script ({exc})",
               file=sys.stderr)
         return 2
+    from repro_torch.kernels.nvcc import build_all
+    from repro_torch.kernels.ssd_scan import kernel as ssd_ker
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = card_line()
     print(card)
@@ -346,17 +671,22 @@ def main():
     timings = {}
 
     t0 = time.perf_counter()
-    ker.build()
+    build_all([ker.LIBRARY, ssd_ker.LIBRARY])
     timings["build"] = time.perf_counter() - t0
-    info = ker.build_info
-    print(f"build: placement_score in {info['seconds']:.2f} s "
-          f"({'cached' if info['cached'] else 'nvcc'}); "
-          + " | ".join(line.strip() for line in info["log"].splitlines()
-                       if "registers" in line or "spill" in line))
+    for lib in (ker.LIBRARY, ssd_ker.LIBRARY):
+        info = lib.info
+        print(f"build: {lib.name} in {info['seconds']:.2f} s "
+              f"({'cached' if info['cached'] else 'nvcc'}); "
+              + " | ".join(line.strip() for line in info["log"].splitlines()
+                           if "registers" in line or "spill" in line))
 
     t0 = time.perf_counter()
     stats = check_kernel(dev)
     timings["kernel check"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ssd_stats = check_ssd_kernel(dev)
+    timings["ssd_scan check"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     golden(dev)
@@ -365,14 +695,26 @@ def main():
     t0 = time.perf_counter()
     launches = main_path(dev)
     timings["main path"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    serve_golden(dev)
+    timings["serving golden"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ssd_launches = serve_main_path(dev)
+    timings["serving main path"] = time.perf_counter() - t0
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in timings.items()))
 
-    print(json.dumps({"kernels": [dict(
-        name="placement_score", route="cuda",
-        source="src/repro_torch/csrc/placement_score.cu",
-        replaces="src/repro/kernels/placement_score/kernel.py:73",
-        launches=launches, library_ms=None, **stats)]}))
+    print(json.dumps({"kernels": [
+        dict(name="placement_score", route="cuda",
+             source="src/repro_torch/csrc/placement_score.cu",
+             replaces="src/repro/kernels/placement_score/kernel.py:73",
+             launches=launches, library_ms=None, **stats),
+        dict(name="ssd_scan", route="cuda",
+             source="src/repro_torch/csrc/ssd_scan.cu",
+             replaces="src/repro/kernels/ssd_scan/kernel.py:52",
+             launches=ssd_launches, library_ms=None, **ssd_stats)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,12 +2,12 @@
 
 The port's counterpart of loading weights: it takes numpy arrays (the
 leaves of `repro`'s `JaxTopology`, `HallState` and `FleetTrace`, as
-`np.asarray` gives them) and returns the port's batched tensors on a
-given device.  Each leaf may be one configuration's (the batch axis is
-added) or already carry the leading configuration axis.  Leaves that
-only the pod and row-subset paths read (`row_domain`, `hd_index`) are
-not taken: those paths are not ported.  Only numpy
-crosses over: nothing of `repro` or `jax` is imported here.
+`np.asarray` gives them, and a model's parameter tree) and returns the
+port's tensors on a given device.  A fleet-state leaf may be one
+configuration's (the batch axis is added) or already carry the leading
+configuration axis.  Leaves that only the pod and row-subset paths read
+(`row_domain`, `hd_index`) are not taken: those paths are not ported.
+Only numpy crosses over: nothing of `repro` or `jax` is imported here.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ import torch
 
 from .core.fleet import FleetTrace
 from .core.placement import HallState, Topology, check_hall_blocks
+from .models.params import Spec, leaves, unflatten
 
 # field -> (dtype, ndim of one configuration's leaf)
 _TOPOLOGY = {
@@ -81,3 +82,44 @@ def state_from_numpy(leaves: Mapping[str, np.ndarray], device) -> HallState:
 def trace_from_numpy(leaves: Mapping[str, np.ndarray], device) -> FleetTrace:
     """`repro` `FleetTrace` leaves → the port's `FleetTrace`."""
     return FleetTrace(**_convert(leaves, _TRACE, device))
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    """A numpy leaf as a tensor; bfloat16 (`ml_dtypes`, as `np.asarray`
+    gives a JAX bfloat16 array) is carried over by its bits."""
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a).view(np.int16)) \
+            .view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _flatten(tree: Mapping, prefix: str = ""):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flatten(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def params_from_numpy(tree: Mapping, spec: Spec, device,
+                      dtype=torch.float32):
+    """`repro`'s parameter tree (a nested dict of numpy arrays, stacked
+    `[L, …]` block leaves) → the port's, cast to `dtype` on `device`.
+    Every leaf of `spec` must be present with its shape, and nothing
+    else."""
+    flat = dict(_flatten(tree))
+    want = dict(leaves(spec))
+    missing = sorted(set(want) - set(flat))
+    if missing:
+        raise KeyError(f"parameters missing from the tree: {missing}")
+    extra = sorted(set(flat) - set(want))
+    if extra:
+        raise ValueError(f"parameters not in the port's spec: {extra}")
+    out = []
+    for path, p in want.items():
+        a = np.asarray(flat[path])
+        if a.shape != p.shape:
+            raise ValueError(f"parameter `{path}` has shape {a.shape}, the "
+                             f"port's spec says {p.shape}")
+        out.append((path, _tensor(a).to(device=device, dtype=dtype)))
+    return unflatten(out)

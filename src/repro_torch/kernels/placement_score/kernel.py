@@ -14,78 +14,28 @@ wrapper `ops.score_rows`).  The source is `csrc/placement_score.cu`:
   agrees with `ref.reference_score` bitwise on `feas` and on the score at
   feasible rows.
 
-The library is compiled with `nvcc` at first use into
-``build/repro_torch_kernels/<source hash>/`` under the checkout and
+The library is compiled with `nvcc` at first use (see `..nvcc`) and
 loaded with `ctypes`.  `placement_score.launches` counts launches.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import tempfile
-import time
 
 import torch
 
-_SOURCE = pathlib.Path(__file__).resolve().parents[2] / "csrc" / \
-    "placement_score.cu"
-_BUILD_ROOT = pathlib.Path(__file__).resolve().parents[4] / "build" / \
-    "repro_torch_kernels"
-NVCC_FLAGS = ("-O3", "-gencode", "arch=compute_90a,code=sm_90a",
-              "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+from ..nvcc import KernelLibrary
+
 _MAX_CONFIGS = 65535          # grid.y limit
 
-_lib = None
-build_info: dict = {}
+
+def _bind(lib):
+    fn = lib.placement_score_launch
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 14
+    fn.restype = ctypes.c_int
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.isfile(path):
-        raise RuntimeError("nvcc not found: the placement-score kernel is "
-                           "built from source on the machine with the card")
-    return path
-
-
-def build() -> pathlib.Path:
-    """Compile the kernel library if this source has not been built yet;
-    returns its path.  `build_info` records the seconds spent and the
-    compiler's register/shared-memory report."""
-    src = _SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD_ROOT / key / "libplacement_score.so"
-    if out.is_file():
-        build_info.update(path=str(out), seconds=0.0, cached=True, log="")
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
-        tmp_out = pathlib.Path(tmp) / out.name
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp_out),
-                               str(_SOURCE)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp_out, out)
-    build_info.update(path=str(out), seconds=time.perf_counter() - t0,
-                      cached=False, log=proc.stdout + proc.stderr)
-    return out
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.placement_score_launch
-        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 14
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+LIBRARY = KernelLibrary("placement_score", "placement_score.cu",
+                        ("-fmad=false",), _bind)
 
 
 def _check(name, x, dtype, shape, device):
@@ -137,7 +87,7 @@ def placement_score(row_feeds, row_nfeeds, row_cap, row_load, lineup_ha,
     score = torch.empty((N, R), dtype=f32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = _library().placement_score_launch(
+        err = LIBRARY.library().placement_score_launch(
             N, R, X, row_feeds.data_ptr(), row_nfeeds.data_ptr(),
             row_cap.data_ptr(), row_load.data_ptr(), lineup_ha.data_ptr(),
             lineup_tot.data_ptr(), lineup_cap.data_ptr(), p_dep.data_ptr(),

@@ -1,0 +1,205 @@
+"""Mamba2 mixer via SSD — state-space duality (arXiv:2405.21060); port of
+`repro.models.ssm`.
+
+The chunked SSD decomposition does the intra-chunk work as dense
+contractions and carries the state across chunks with a short loop.  With
+`cfg.use_flash_kernel` the intra-chunk pass is the hand-written CUDA
+kernel (`repro_torch.kernels.ssd_scan`); otherwise `_ssd_chunked`, the
+reference's plain path.  Types follow the reference: `xdt` is in the
+parameters' type, `log_a` and the state `h` are float32, the conv state
+is stored in the cache's type.
+
+Layout: d_inner = expand·d_model = n_heads·head_dim; a single B/C group
+shared across heads (the Mamba2 default).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ArchConfig
+from ..kernels.ssd_scan import ops as ssd_ops
+from .layers import rms_norm
+from .params import ParamDef, Spec
+
+
+def ssm_spec(cfg: ArchConfig) -> Spec:
+    d, di, st, nh, K = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                        cfg.ssm_heads, cfg.ssm_conv)
+    return {
+        "in_z": ParamDef((d, di), ("embed", "ssm_inner")),
+        "in_x": ParamDef((d, di), ("embed", "ssm_inner")),
+        "in_b": ParamDef((d, st), ("embed", "ssm_state")),
+        "in_c": ParamDef((d, st), ("embed", "ssm_state")),
+        "in_dt": ParamDef((d, nh), ("embed", "ssm_heads")),
+        "conv_x": ParamDef((K, di), ("conv", "ssm_inner"), scale=0.5),
+        "conv_b": ParamDef((K, st), ("conv", "ssm_state"), scale=0.5),
+        "conv_c": ParamDef((K, st), ("conv", "ssm_state"), scale=0.5),
+        "a_log": ParamDef((nh,), ("ssm_heads",), init="ones"),
+        "dt_bias": ParamDef((nh,), ("ssm_heads",), init="zeros"),
+        "d_skip": ParamDef((nh,), ("ssm_heads",), init="ones"),
+        "gate_norm": ParamDef((di,), ("ssm_inner",), init="ones"),
+        "out": ParamDef((di, d), ("ssm_inner", "embed")),
+    }
+
+
+def _silu(x):
+    return x * torch.sigmoid(x)
+
+
+def _softplus(x):
+    """log(1 + e^x) as `jax.nn.softplus` forms it (logaddexp(x, 0))."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def _causal_conv(x, w, state=None):
+    """Depthwise causal conv: x [B,S,F], w [K,F].  If `state` [B,K-1,F] is
+    given (decode), convolves the concatenation and returns new state."""
+    K = w.shape[0]
+    pad = torch.zeros_like(x[:, : K - 1]) if state is None else state
+    dtype = torch.result_type(pad, x)
+    xp = torch.cat([pad.to(dtype), x.to(dtype)], dim=1)
+    out = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(K))
+    new_state = xp[:, -(K - 1):]
+    return _silu(out), new_state
+
+
+def _ssd_chunked(xdt, log_a, b, c, chunk: int):
+    """Chunked SSD scan (the plain path, `use_flash_kernel=False`).
+
+    xdt: [B,S,nh,hd] (dt-scaled inputs);  log_a: [B,S,nh] (per-step log
+    decay);  b, c: [B,S,st].  Returns y [B,S,nh,hd] float32.  As in the
+    reference, C·B is formed in the inputs' type.
+    """
+    B, S0, nh, hd = xdt.shape
+    st = b.shape[-1]
+    Q = min(chunk, S0)
+    pad = (-S0) % Q
+    if pad:
+        # identity steps (xdt=0, log_a=0) rather than a smaller chunk
+        zf = lambda t: F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+        xdt, log_a, b, c = zf(xdt), zf(log_a), zf(b), zf(c)
+    S = S0 + pad
+    nC = S // Q
+    rs = lambda t: t.reshape((B, nC, Q) + tuple(t.shape[2:]))
+    xdt, log_a, b, c = rs(xdt), rs(log_a), rs(b), rs(c)
+    f32 = torch.float32
+
+    acum = torch.cumsum(log_a, dim=2)                      # [B,nC,Q,nh]
+    s_qk = torch.einsum("bnqs,bnks->bnqk", c, b)           # [B,nC,Q,Q]
+    gap = acum[:, :, :, None, :] - acum[:, :, None, :, :]  # [B,nC,Q,Q,nh]
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=xdt.device).tril()
+    gap = torch.where(causal[None, None, :, :, None], gap, -1e9)
+    decay = torch.exp(gap)
+    w = s_qk[..., None].to(f32) * decay                    # [B,nC,Q,Q,nh]
+    y_intra = torch.einsum("bnqkh,bnkhd->bnqhd", w, xdt.to(f32))
+
+    # chunk summaries: H_n = Σ_k e^{A_Q−A_k} B_k ⊗ xdt_k   [B,nC,nh,hd,st]
+    tail = torch.exp(acum[:, :, -1:, :] - acum)            # [B,nC,Q,nh]
+    xtail = xdt.to(f32) * tail[..., None]                  # [B,nC,Q,nh,hd]
+    h_chunk = torch.einsum("bnqhd,bnqs->bnhds", xtail, b.to(f32))
+    a_chunk = torch.exp(acum[:, :, -1, :])                 # [B,nC,nh]
+
+    h = torch.zeros((B, nh, hd, st), dtype=f32, device=xdt.device)
+    h_prevs = []
+    for i in range(nC):
+        h_prevs.append(h)
+        h = h * a_chunk[:, i, :, None, None] + h_chunk[:, i]
+    h_prevs = torch.stack(h_prevs, 1)                      # [B,nC,nh,hd,st]
+
+    y_inter = torch.einsum("bnqs,bnhds->bnqhd", c.to(f32), h_prevs) * \
+        torch.exp(acum)[..., None]
+    y = (y_intra + y_inter).reshape(B, S, nh, hd)
+    return y[:, :S0]
+
+
+class SSMCache(NamedTuple):
+    conv: torch.Tensor    # [B, K-1, di + 2·st]
+    h: torch.Tensor       # [B, nh, hd, st] (float32)
+
+
+def init_ssm_cache(cfg: ArchConfig, batch: int, dtype=torch.bfloat16,
+                   device=None) -> SSMCache:
+    di, st, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
+    return SSMCache(
+        torch.zeros((batch, cfg.ssm_conv - 1, di + 2 * st), dtype=dtype,
+                    device=device),
+        torch.zeros((batch, nh, hd, st), dtype=torch.float32, device=device))
+
+
+def _project(cfg: ArchConfig, p, x):
+    z = x @ p["in_z"]
+    xs = x @ p["in_x"]
+    b = x @ p["in_b"]
+    c = x @ p["in_c"]
+    dt = _softplus((x @ p["in_dt"]).float() + p["dt_bias"])
+    return z, xs, b, c, dt
+
+
+def ssm_apply(cfg: ArchConfig, p, x, cache: SSMCache | None = None,
+              interpret: bool = False):
+    """Full-sequence Mamba2 mixer.  x: [B,S,d] → (y, new_cache or None).
+    `interpret=True` runs the kernel's plain version in its place."""
+    B, S, d = x.shape
+    di, st, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
+    z, xs, b, c, dt = _project(cfg, p, x)
+    conv_w = torch.cat([p["conv_x"], p["conv_b"], p["conv_c"]], -1)
+    feats = torch.cat([xs, b, c], -1)
+    feats, conv_state = _causal_conv(feats, conv_w,
+                                     cache.conv if cache is not None else None)
+    xs, b, c = torch.split(feats, [di, st, st], dim=-1)
+
+    a = -torch.exp(p["a_log"].float())                     # [nh]
+    log_a = dt * a                                         # [B,S,nh]
+    xh = xs.reshape(B, S, nh, hd)
+    xdt = xh * dt[..., None].to(xh.dtype)
+
+    if cfg.use_flash_kernel:
+        y = ssd_ops.ssd_scan(xdt, log_a, b, c, chunk=cfg.ssm_chunk,
+                             interpret=interpret)
+    else:
+        y = _ssd_chunked(xdt, log_a, b, c, cfg.ssm_chunk)
+    y = y + xh.float() * p["d_skip"].float()[:, None]
+    y = y.reshape(B, S, di).to(x.dtype)
+
+    y = rms_norm(y * _silu(z), p["gate_norm"], cfg.norm_eps)
+    out = y @ p["out"]
+    new_cache = None
+    if cache is not None:
+        # final ssm state for decode handoff
+        h = _final_state(xdt, log_a, b)
+        new_cache = SSMCache(conv_state.to(cache.conv.dtype), h)
+    return out, new_cache
+
+
+def _final_state(xdt, log_a, b):
+    """h_S = Σ_k e^{A_S−A_k} B_k ⊗ xdt_k   (float32, [B,nh,hd,st])."""
+    acum = torch.cumsum(log_a, dim=1)                      # [B,S,nh]
+    tail = torch.exp(acum[:, -1:, :] - acum)
+    xtail = xdt.float() * tail[..., None]                  # [B,S,nh,hd]
+    return torch.einsum("bqhd,bqs->bhds", xtail, b.float())
+
+
+def ssm_decode_step(cfg: ArchConfig, p, x, cache: SSMCache):
+    """Single-token recurrent update.  x: [B,1,d]."""
+    B = x.shape[0]
+    di, st, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
+    z, xs, b, c, dt = _project(cfg, p, x)
+    conv_w = torch.cat([p["conv_x"], p["conv_b"], p["conv_c"]], -1)
+    feats = torch.cat([xs, b, c], -1)                      # [B,1,F]
+    feats, conv_state = _causal_conv(feats, conv_w, cache.conv)
+    xs, b, c = torch.split(feats, [di, st, st], dim=-1)
+
+    a = -torch.exp(p["a_log"].float())
+    da = torch.exp(dt[:, 0] * a)                           # [B,nh]
+    xh = xs.reshape(B, nh, hd).float()
+    xdt = xh * dt[:, 0][..., None]
+    h = cache.h * da[..., None, None] + \
+        torch.einsum("bhd,bs->bhds", xdt, b[:, 0].float())
+    y = torch.einsum("bhds,bs->bhd", h, c[:, 0].float())
+    y = y + xh * p["d_skip"].float()[:, None]
+    y = y.reshape(B, 1, di).to(x.dtype)
+    y = rms_norm(y * _silu(z), p["gate_norm"], cfg.norm_eps)
+    return y @ p["out"], SSMCache(conv_state.to(cache.conv.dtype), h)

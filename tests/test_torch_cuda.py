@@ -73,3 +73,95 @@ def test_sweep_on_the_card_equals_the_cpu(cuda):
     for f in ("halls_active", "deployed_mw", "p90_stranding", "reg_rows",
               "final_lineup_stranding", "effective_dpm"):
         np.testing.assert_array_equal(getattr(on_card, f), getattr(on_cpu, f))
+
+
+# ---- ssd_scan (Mamba2 SSD intra-chunk kernel) ----
+
+def ssd_inputs(seed, device, B, S, nh, hd, st, dtype):
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    t = lambda a, dt: torch.as_tensor(a.astype(f32), device=device).to(dt)
+    xdt = t(0.5 * rng.standard_normal((B, S, nh, hd)), dtype)
+    log_a = t(-0.5 * np.logaddexp(rng.standard_normal((B, S, nh)), 0),
+              torch.float32)
+    b = t(0.5 * rng.standard_normal((B, S, st)), dtype)
+    c = t(0.5 * rng.standard_normal((B, S, st)), dtype)
+    return xdt, log_a, b, c
+
+
+@pytest.mark.parametrize("B,S,nh,hd,st,Q,dtype", [
+    (2, 64, 8, 16, 16, 8, torch.float32),         # smoke widths
+    (2, 64, 8, 16, 16, 32, torch.bfloat16),
+    (1, 128, 80, 64, 128, 128, torch.bfloat16),   # one full-width chunk
+    (1, 256, 4, 64, 128, 256, torch.bfloat16),    # the default chunk
+    (1, 96, 4, 8, 8, 32, torch.float32),
+])
+def test_ssd_kernel_equals_plain_version(cuda, B, S, nh, hd, st, Q, dtype):
+    """The kernel and its plain version share every rounding: bitwise."""
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan.ref import reference_intra_chunk
+    args = ssd_inputs(S + nh, cuda, B, S, nh, hd, st, dtype)
+    before = ssd_kernel.ssd_intra_chunk.launches
+    got = ssd_kernel.ssd_intra_chunk(*args, Q)
+    want = reference_intra_chunk(*args, Q)
+    torch.cuda.synchronize()
+    assert ssd_kernel.ssd_intra_chunk.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("S,chunk", [(8, 128), (100, 32), (1000, 128)])
+def test_ssd_scan_short_and_padded_sequences(cuda, S, chunk):
+    """S below the chunk (Q = S) and S off a chunk multiple (identity
+    padding): the kernel path equals interpret=True bitwise and the
+    naive recurrence to 1e-3."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import reference_ssd
+    args = ssd_inputs(S, cuda, 1, S, 4, 16, 16, torch.float32)
+    y = ssd_ops.ssd_scan(*args, chunk=chunk)
+    assert torch.equal(y, ssd_ops.ssd_scan(*args, chunk=chunk,
+                                           interpret=True))
+    torch.testing.assert_close(y, reference_ssd(*args), rtol=0, atol=1e-3)
+
+
+def test_ssd_kernel_rejects_an_unsupported_chunk(cuda):
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    args = ssd_inputs(0, cuda, 1, 512, 2, 64, 128, torch.bfloat16)
+    before = ssd_kernel.ssd_intra_chunk.launches
+    with pytest.raises(ValueError, match="chunk 512"):
+        ssd_kernel.ssd_intra_chunk(*args, 512)
+    assert ssd_kernel.ssd_intra_chunk.launches == before
+
+
+def test_engine_on_the_card_launches_the_kernel(cuda):
+    import dataclasses
+    from repro_torch.configs.mamba2_2p7b import smoke_config
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.models.api import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = dataclasses.replace(smoke_config(), use_flash_kernel=True)
+    model = build_model(cfg, cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    engine = ServeEngine(model, params, batch_slots=2, max_seq=48,
+                         prompt_len=8)
+    rng = np.random.default_rng(0)
+    for rid in range(5):
+        engine.submit(Request(rid, rng.integers(0, cfg.vocab, size=8),
+                              max_new_tokens=8))
+    before = ssd_kernel.ssd_intra_chunk.launches
+    engine.run_until_drained()
+    torch.cuda.synchronize()
+    assert engine.stats["prefills"] == 5
+    assert ssd_kernel.ssd_intra_chunk.launches - before == 5 * cfg.n_layers
+    assert torch.isfinite(engine.caches.h).all()
+
+
+def test_ssd_kernel_shared_memory_formula(cuda):
+    """The wrapper's shared-memory check uses the source's own count."""
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    lib = ssd_kernel.LIBRARY.library()
+    for Q, hd, st, elem in ((128, 64, 128, 2), (128, 64, 128, 4),
+                            (256, 64, 128, 2), (8, 16, 16, 4)):
+        assert lib.ssd_intra_chunk_smem_bytes(Q, hd, st, elem) == \
+            ssd_kernel.smem_bytes(Q, hd, st, elem)
