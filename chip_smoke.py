@@ -5,9 +5,9 @@
 
 Builds the port's CUDA kernels from the checkout (one `nvcc` per source,
 in parallel) and holds each against its plain PyTorch version at the
-shapes its main path gives it.  Then it drives the port's two main paths
-on the card, each with the kernel launch counts set to 0 just before it
-and read just after:
+shapes its main path gives it.  Then it drives the port's main paths on
+the card, each with the kernel launch counts set to 0 just before it and
+read just after:
 
 * the fleet sweep: a small sweep on the card against the same sweep on
   the CPU, then the `fleet_study` grid (the four reference designs ×
@@ -18,7 +18,15 @@ and read just after:
   (float32), then the full-width model (64 layers, d_model 2560, bf16
   weights drawn from a generator seeded with 0) behind `ServeEngine`
   with 4 slots, 8 requests of 1024 prompt tokens and 32 new tokens each;
-  it launches `ssd_scan` once per layer per prefill.
+  it launches `ssd_scan` once per layer per prefill;
+* Qwen3-1.7B scoring: `smoke_config()` scored on the CPU and on the card
+  (float32), then `Model.loss` at full width (28 layers, d_model 2048,
+  bf16 weights drawn from a generator seeded with 0) on 4 × 4096 tokens
+  under `torch.inference_mode()`; it launches `flash_attention` once per
+  layer per call;
+* Qwen3-1.7B serving: the smoke golden, then the full-width model behind
+  `ServeEngine` with Mamba2's traffic; its prefill and decode use the
+  plain attention, as the reference's do, and launch no kernel.
 
 Float32 matrix products run in full float32 (TF32 off).  It fails, and
 prints no result, without a CUDA device or without the port beside it.
@@ -56,6 +64,22 @@ SSD_NAIVE_RTOL = 1e-4
 # (bitwise expected, as above) and of the card vs the CPU at float32
 SERVE_LOGIT_ATOL = 5e-2
 GOLDEN_LOGIT_ATOL = 1e-4
+# flash_attention check: kernel vs its plain version, which differ only in
+# the order of the sums inside a key tile.  float32: max |kernel − plain|
+# <= FLASH_F32_RTOL·max |plain|.  bf16: each element within one bf16 ulp
+# of the plain value plus that float32 term, |a − b| <= FLASH_BF16_ULP·|b|
+# + FLASH_F32_RTOL·max |b|: both sides round once from float32 values that
+# agree to the float32 term, which also covers elements near zero, where
+# the weighted sum cancels and the float32 values differ by more than a
+# bf16 ulp of the element itself.
+FLASH_F32_RTOL = 1e-5
+FLASH_BF16_ULP = 2.0 ** -7
+# the scoring main path: Model.loss on [4, 4096] tokens, the reference's
+# train_4k sequence length at batch 4 (src/repro/launch/shapes.py)
+SCORE_BATCH, SCORE_SEQ, SCORE_CALLS = 4, 4096, 3
+# losses: kernel vs interpret=True run (same weights and batch), and the
+# smoke golden CPU vs card at float32
+SCORE_LOSS_RTOL = 1e-5
 
 
 def card_line():
@@ -455,6 +479,114 @@ def check_ssd_kernel(dev):
                 bound_ms=bound_s * 1e3, bound_by=by)
 
 
+# ---------------------------------------------------------- flash_attention
+
+def flash_inputs(dev, B, S, H, Hk, hd, dtype, seed):
+    """q, k, v in the model's [B, S, heads, hd] layout: unit normals, as
+    qk-normed projections give, drawn from a seeded generator on the card
+    and cast to `dtype`."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)
+    return t(B, S, H, hd), t(B, S, Hk, hd), t(B, S, Hk, hd)
+
+
+def flash_within(got, want, dtype):
+    """(max abs err, share of the bound used; <= 1 passes): float32 max
+    |got − want| <= FLASH_F32_RTOL·max |want|; bf16 |got − want| <=
+    FLASH_BF16_ULP·|want| + FLASH_F32_RTOL·max |want| at every element."""
+    import torch
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    f32 = FLASH_F32_RTOL * float(want.abs().max())
+    if dtype == torch.float32:
+        return float(err.max()), float(err.max()) / f32
+    return float(err.max()), float((err / (FLASH_BF16_ULP * want.abs()
+                                           + f32)).max())
+
+
+def flash_bound(B, S, H, Hk, hd, elem):
+    """(bytes, flop) of causal attention over S rows: q, k and v read once
+    and o written once; 4·hd flop per causal (row, key) pair (q·k and
+    p·v), S(S+1)/2 pairs per head."""
+    n_bytes = (2 * B * H * S * hd + 2 * B * Hk * S * hd) * elem
+    return n_bytes, 4 * hd * B * H * S * (S + 1) // 2
+
+
+def check_flash_case(dev, B, S, H, Hk, hd, dtype, causal, seed):
+    """The kernel through `ops.flash_attention` against the same call with
+    interpret=True (the plain version) on the same inputs; raises outside
+    the tolerance.  Returns the max abs error."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    q, k, v = flash_inputs(dev, B, S, H, Hk, hd, dtype, seed)
+    before = fk.flash_attention_bhsd.launches
+    got = fops.flash_attention(q, k, v, causal=causal)
+    want = fops.flash_attention(q, k, v, causal=causal, interpret=True)
+    torch.cuda.synchronize()
+    if fk.flash_attention_bhsd.launches != before + 1:
+        raise AssertionError("flash_attention: the kernel was not launched")
+    if got.shape != (B, S, H, hd) or got.dtype != dtype or \
+            not torch.isfinite(got).all():
+        raise AssertionError(f"flash_attention {dtype} S={S}: output "
+                             f"{tuple(got.shape)} {got.dtype} or not finite")
+    err, share = flash_within(got, want, dtype)
+    block = min(128, max(8, 1 << (S - 1).bit_length()))
+    print(f"kernel check: flash_attention B={B} S={S} (block {block}, padded "
+          f"{-(-S // block) * block}) H={H} Hk={Hk} hd={hd} {dtype} "
+          f"{'causal' if causal else 'not causal'}: max abs err {err:.3e}, "
+          f"max |plain| {float(want.float().abs().max()):.4f}, "
+          f"{share:.3f} of the tolerance")
+    if not share <= 1:
+        raise AssertionError(f"flash_attention {dtype} S={S} hd={hd}: "
+                             f"kernel vs plain version off by {err} "
+                             f"({share} of the tolerance)")
+    return err
+
+
+def check_flash_kernel(dev):
+    """The kernel against its plain version at the scoring shape in bf16
+    and float32, at S 4097 (off the block) and at the smoke shape, causal
+    and not; then device times at the scoring shape in bf16: the kernel,
+    the plain version and `scaled_dot_product_attention` (the library
+    yardstick, never on a path), beside the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import reference_flash_bhsd
+    B, S, H, Hk, hd = SCORE_BATCH, SCORE_SEQ, 16, 8, 128
+    err = check_flash_case(dev, B, S, H, Hk, hd, torch.bfloat16, True, 1)
+    check_flash_case(dev, B, S, H, Hk, hd, torch.float32, True, 2)
+    check_flash_case(dev, 2, S + 1, H, Hk, hd, torch.bfloat16, True, 3)
+    for causal in (True, False):
+        check_flash_case(dev, 4, 64, 4, 2, 16, torch.float32, causal, 4)
+
+    q, k, v = (x.transpose(1, 2).contiguous() for x in flash_inputs(
+        dev, B, S, H, Hk, hd, torch.bfloat16, 1))
+    kw = dict(causal=True, kv_len=S)
+    ms = device_time_ms(lambda: fk.flash_attention_bhsd(q, k, v, **kw), 10)
+    plain_ms = device_time_ms(
+        lambda: reference_flash_bhsd(q, k, v, **kw), 2)
+    library_ms = device_time_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               enable_gqa=True), 10)
+    n_bytes, n_flop = flash_bound(B, S, H, Hk, hd, 2)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flop / BF16_FLOP_PER_S
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    bound_s = max(t_bytes, t_ops)
+    print(f"kernel time: flash_attention B={B} S={S} H={H} Hk={Hk} hd={hd} "
+          f"bf16 causal: device time per call kernel {ms * 1e3:.3f} us, plain "
+          f"{plain_ms * 1e3:.3f} us, scaled_dot_product_attention "
+          f"{library_ms * 1e3:.3f} us; bound {bound_s * 1e6:.3f} us ({by}: "
+          f"{n_flop} flop at 989 TFLOP/s bf16 = {t_ops * 1e6:.3f} us; "
+          f"{n_bytes} B at 3.35 TB/s = {t_bytes * 1e6:.3f} us); the same "
+          f"flop at 67 TFLOP/s float32 = "
+          f"{n_flop / FP32_FLOP_PER_S * 1e6:.3f} us")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_s * 1e3, bound_by=by, library_ms=library_ms)
+
+
 # ---------------------------------------------------------------- serving
 
 class Recorder:
@@ -520,26 +652,27 @@ def serve_once(model, params, prompts, engine_kw, max_new):
                 prefill_s=sum(rec.prefill_s))
 
 
-def serve_golden(dev):
+def to_dev(tree, dev):
+    return {k: to_dev(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def serve_golden(dev, arch="mamba2-2.7b"):
     """smoke_config() in float32 on the CPU and on the card, same
     weights: the same tokens, prefill logits within GOLDEN_LOGIT_ATOL."""
     import dataclasses
     import numpy as np
     import torch
-    from repro_torch.configs.mamba2_2p7b import smoke_config
+    from repro_torch.configs.base import get_smoke_config
     from repro_torch.models.api import build_model
-    cfg = dataclasses.replace(smoke_config(), use_flash_kernel=True)
+    cfg = dataclasses.replace(get_smoke_config(arch), use_flash_kernel=True)
     on_cpu = build_model(cfg, "cpu")
     params = on_cpu.init(torch.Generator().manual_seed(0), torch.float32)
-
-    def to_dev(tree):
-        return {k: to_dev(v) if isinstance(v, dict) else v.to(dev)
-                for k, v in tree.items()}
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, size=8)
                for _ in range(GOLDEN_REQUESTS)]
     a = serve_once(on_cpu, params, prompts, GOLDEN_SERVE, GOLDEN_NEW)
-    b = serve_once(build_model(cfg, dev), to_dev(params), prompts,
+    b = serve_once(build_model(cfg, dev), to_dev(params, dev), prompts,
                    GOLDEN_SERVE, GOLDEN_NEW)
     err = float((a["logits"] - b["logits"]).abs().max())
     if a["outputs"] != b["outputs"] or a["stats"] != b["stats"]:
@@ -547,8 +680,9 @@ def serve_golden(dev):
     if not err <= GOLDEN_LOGIT_ATOL:
         raise AssertionError(f"serving golden: prefill logits differ by "
                              f"{err}, CPU vs card")
-    print(f"serving golden: mamba2-2.7b smoke_config (2 layers, d_model 64) "
-          f"float32, {GOLDEN_REQUESTS} requests over 2 slots: CPU "
+    print(f"serving golden: {arch} smoke_config ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}) float32, {GOLDEN_REQUESTS} requests over "
+          f"2 slots: CPU "
           f"{a['wall']:.2f} s, card {b['wall']:.2f} s; tokens equal "
           f"({a['stats']}); prefill logits max abs diff {err:.3e} "
           f"(tolerance {GOLDEN_LOGIT_ATOL})")
@@ -558,7 +692,6 @@ def serve_main_path(dev):
     import dataclasses
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.mamba2_2p7b import CONFIG
     from repro_torch.kernels.ssd_scan.kernel import ssd_intra_chunk
     from repro_torch.models.api import build_model
@@ -606,18 +739,7 @@ def serve_main_path(dev):
         raise AssertionError(f"serving: prefill logits of interpret=True "
                              f"differ by {err}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    for i, r in enumerate(runs):
-        st = r["stats"]
-        decode_s = r["wall"] - r["prefill_s"]
-        print(f"serving run {i + 1}: {st['prefills']} prefills of "
-              f"{SERVE['prompt_len']} tokens, {st['decode_steps']} decode "
-              f"steps over {SERVE['batch_slots']} slots, {r['steps']} engine "
-              f"steps; wall {r['wall']:.3f} s; prefill "
-              f"{r['prefill_s'] / st['prefills'] * 1e3:.2f} ms per request; "
-              f"decode {decode_s / st['decode_steps'] * 1e3:.2f} ms per step;"
-              f" {st['tokens'] / r['wall']:.1f} tokens/s (prompt + "
-              f"generated), {SERVE_REQUESTS * SERVE_NEW / r['wall']:.1f} "
-              f"generated tokens/s")
+    print_serving_runs(runs)
     print(f"serving: ssd_scan launches {launches} (= {SERVE_REQUESTS} "
           f"prefills x {cfg.n_layers} layers); repeat bitwise equal; "
           f"interpret=True run ({plain['wall']:.3f} s wall, prefill "
@@ -626,19 +748,216 @@ def serve_main_path(dev):
           f"(tolerance {SERVE_LOGIT_ATOL}); every logit finite; peak "
           f"device memory {peak:.2f} GiB; first tokens "
           f"{[o[:4] for o in runs[0]['outputs'][:2]]}")
+    profile_serving(lambda: serve(model), "serving")
+    return launches
 
+
+def print_serving_runs(runs, label="serving"):
+    for i, r in enumerate(runs):
+        st = r["stats"]
+        decode_s = r["wall"] - r["prefill_s"]
+        print(f"{label} run {i + 1}: {st['prefills']} prefills of "
+              f"{SERVE['prompt_len']} tokens, {st['decode_steps']} decode "
+              f"steps over {SERVE['batch_slots']} slots, {r['steps']} engine "
+              f"steps; wall {r['wall']:.3f} s; prefill "
+              f"{r['prefill_s'] / st['prefills'] * 1e3:.2f} ms per request; "
+              f"decode {decode_s / st['decode_steps'] * 1e3:.2f} ms per step;"
+              f" {st['tokens'] / r['wall']:.1f} tokens/s (prompt + "
+              f"generated), {SERVE_REQUESTS * SERVE_NEW / r['wall']:.1f} "
+              f"generated tokens/s")
+
+
+def profile_serving(serve, label):
+    """One engine run under the profiler (card activity only): the top
+    device kernels and the idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        prof_run = serve(model)
+        prof_run = serve()
         torch.cuda.synchronize()
     busy, by_name = device_activity(prof)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     for name, (calls, secs) in top:
         print(f"  device {secs:8.4f} s {calls:8d} calls  {name[:90]}")
-    print(f"serving profiled (card activity): {prof_run['wall']:.3f} s wall, "
+    print(f"{label} profiled (card activity): {prof_run['wall']:.3f} s wall, "
           f"device busy {busy:.3f} s, idle share "
           f"{1 - busy / prof_run['wall']:.3f}, "
           f"{sum(c for c, _ in by_name.values())} kernels and copies")
+
+
+def dense_serve_main_path(dev):
+    """qwen3-1.7b at full width behind `ServeEngine`, Mamba2's traffic:
+    two runs with equal tokens; prefill and decode take the plain
+    attention, as the reference's do, so no kernel is launched."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.qwen3_1p7b import CONFIG
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_bhsd
+    from repro_torch.models.api import build_model
+    cfg = dataclasses.replace(CONFIG, use_flash_kernel=True)
+    model = build_model(cfg, dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        torch.bfloat16)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=SERVE["prompt_len"])
+               for _ in range(SERVE_REQUESTS)]
+    serve = lambda: serve_once(model, params, prompts, SERVE, SERVE_NEW)
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_bhsd.launches = 0
+    runs = [serve(), serve()]
+    if flash_attention_bhsd.launches != 0:
+        raise AssertionError("dense serving launched flash_attention; the "
+                             "reference's prefill and decode do not")
+    if runs[1]["outputs"] != runs[0]["outputs"] or \
+            not torch.equal(runs[1]["logits"], runs[0]["logits"]):
+        raise AssertionError("dense serving: a repeat run gave other tokens")
+    for out in runs[0]["outputs"]:
+        if len(out) != SERVE_NEW or not all(0 <= t < cfg.vocab for t in out):
+            raise AssertionError(f"dense serving: bad output {out}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"dense serving: {cfg.name}, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} query heads over {cfg.n_kv_heads} "
+          f"K/V heads x {cfg.hd}, bf16 KV caches of {SERVE['max_seq']} "
+          f"positions: {model.n_params():,} bf16 parameters")
+    print_serving_runs(runs, "dense serving")
+    print(f"dense serving: repeat bitwise equal; every logit finite; "
+          f"flash_attention launches 0; peak device memory {peak:.2f} GiB; "
+          f"first tokens {[o[:4] for o in runs[0]['outputs'][:2]]}")
+    profile_serving(serve, "dense serving")
+
+
+# ---------------------------------------------------------------- scoring
+
+def score_golden(dev):
+    """qwen3-1.7b smoke_config() scored in float32 on the CPU (the kernel's
+    plain version) and on the card (the kernel), same weights and batches:
+    losses within SCORE_LOSS_RTOL, one launch per layer per call."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.qwen3_1p7b import smoke_config
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_bhsd
+    from repro_torch.models.api import build_model
+    cfg = dataclasses.replace(smoke_config(), use_flash_kernel=True)
+    on_cpu = build_model(cfg, "cpu")
+    on_card = build_model(cfg, dev)
+    params = on_cpu.init(torch.Generator().manual_seed(0), torch.float32)
+    card_params = to_dev(params, dev)
+    rng = np.random.default_rng(0)
+    losses, worst = [], 0.0
+    with torch.inference_mode():
+        for S in (64, 64, 77):
+            tokens = rng.integers(0, cfg.vocab, (SCORE_BATCH, S))
+            a, _ = on_cpu.loss(params, {"tokens": torch.as_tensor(tokens)})
+            before = flash_attention_bhsd.launches
+            b, m = on_card.loss(card_params,
+                                {"tokens": torch.as_tensor(tokens,
+                                                           device=dev)})
+            if flash_attention_bhsd.launches - before != cfg.n_layers:
+                raise AssertionError("scoring golden: the card's loss did "
+                                     "not launch flash_attention per layer")
+            a, b = float(a), float(b)
+            rel = abs(a - b) / abs(a)
+            if not (np.isfinite(b) and rel <= SCORE_LOSS_RTOL and
+                    float(m["tokens"]) == SCORE_BATCH * (S - 1)):
+                raise AssertionError(f"scoring golden: loss {b} on the card "
+                                     f"vs {a} on the CPU")
+            losses.append((a, b))
+            worst = max(worst, rel)
+    print(f"scoring golden: qwen3-1.7b smoke_config float32, batches of "
+          f"{SCORE_BATCH} x 64, 64, 77 tokens: losses CPU vs card "
+          f"{[(round(a, 6), round(b, 6)) for a, b in losses]}; max relative "
+          f"difference {worst:.3e} (tolerance {SCORE_LOSS_RTOL})")
+
+
+def score_main_path(dev):
+    """`Model.loss` on qwen3-1.7b at full width with use_flash_kernel=True
+    under `torch.inference_mode()`: one warm-up call, SCORE_CALLS timed
+    calls (the main path's run, flash launches counted), the loss against
+    an interpret=True run, then one profiled call."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.qwen3_1p7b import CONFIG
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_bhsd
+    from repro_torch.models.api import build_model
+    cfg = dataclasses.replace(CONFIG, use_flash_kernel=True)
+    model = build_model(cfg, dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"scoring: {cfg.name}, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} query heads over {cfg.n_kv_heads} "
+          f"K/V heads x {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}: "
+          f"{model.n_params():,} bf16 parameters drawn in "
+          f"{time.perf_counter() - t0:.2f} s; batch {SCORE_BATCH} x "
+          f"{SCORE_SEQ} tokens")
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab,
+                                               (SCORE_BATCH, SCORE_SEQ))
+    batch = {"tokens": torch.as_tensor(tokens, device=dev)}
+    n_tokens = SCORE_BATCH * SCORE_SEQ
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        float(model.loss(params, batch)[0])
+        print(f"scoring warm-up: {time.perf_counter() - t0:.3f} s wall")
+        torch.cuda.reset_peak_memory_stats()
+        walls, losses = [], []
+        flash_attention_bhsd.launches = 0
+        for _ in range(SCORE_CALLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, metrics = model.loss(params, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+        launches = flash_attention_bhsd.launches
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if launches != SCORE_CALLS * cfg.n_layers:
+            raise AssertionError(f"scoring: {launches} flash_attention "
+                                 f"launches in {SCORE_CALLS} calls")
+        if not (np.isfinite(losses[0]) and len(set(losses)) == 1 and
+                float(metrics["tokens"]) == SCORE_BATCH * (SCORE_SEQ - 1)):
+            raise AssertionError(f"scoring: losses {losses}, tokens "
+                                 f"{float(metrics['tokens'])}")
+        flash_attention_bhsd.launches = 0
+        t0 = time.perf_counter()
+        plain = float(build_model(cfg, dev, interpret=True).loss(params,
+                                                                 batch)[0])
+        plain_wall = time.perf_counter() - t0
+        if flash_attention_bhsd.launches != 0:
+            raise AssertionError("scoring: interpret=True launched the kernel")
+        rel = abs(losses[0] - plain) / abs(plain)
+        if not rel <= SCORE_LOSS_RTOL:
+            raise AssertionError(f"scoring: loss {losses[0]} through the "
+                                 f"kernel vs {plain} with interpret=True")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model.loss(params, batch)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+    busy, by_name = device_activity(prof)
+    for i, w in enumerate(walls):
+        print(f"scoring call {i + 1}: {w * 1e3:.2f} ms wall, "
+              f"{n_tokens / w:.1f} tokens/s, loss {losses[i]:.6f}")
+    print(f"scoring: flash_attention launches {launches} (= {SCORE_CALLS} "
+          f"calls x {cfg.n_layers} layers); losses bitwise equal across "
+          f"calls; interpret=True run ({plain_wall:.3f} s wall) loss "
+          f"{plain:.6f}, relative difference {rel:.3e} (tolerance "
+          f"{SCORE_LOSS_RTOL}); peak device memory {peak:.2f} GiB")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    for name, (calls, secs) in top:
+        print(f"  device {secs:8.4f} s {calls:8d} calls  {name[:90]}")
+    print(f"scoring profiled call (card activity): {prof_wall:.3f} s wall, "
+          f"device busy {busy:.3f} s, idle share {1 - busy / prof_wall:.3f},"
+          f" {sum(c for c, _ in by_name.values())} kernels and copies")
     return launches
 
 
@@ -659,6 +978,7 @@ def main():
         print(f"chip_smoke: the port is not beside this script ({exc})",
               file=sys.stderr)
         return 2
+    from repro_torch.kernels.flash_attention import kernel as flash_ker
     from repro_torch.kernels.nvcc import build_all
     from repro_torch.kernels.ssd_scan import kernel as ssd_ker
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -671,9 +991,10 @@ def main():
     timings = {}
 
     t0 = time.perf_counter()
-    build_all([ker.LIBRARY, ssd_ker.LIBRARY])
+    libraries = (ker.LIBRARY, ssd_ker.LIBRARY, flash_ker.LIBRARY)
+    build_all(libraries)
     timings["build"] = time.perf_counter() - t0
-    for lib in (ker.LIBRARY, ssd_ker.LIBRARY):
+    for lib in libraries:
         info = lib.info
         print(f"build: {lib.name} in {info['seconds']:.2f} s "
               f"({'cached' if info['cached'] else 'nvcc'}); "
@@ -687,6 +1008,10 @@ def main():
     t0 = time.perf_counter()
     ssd_stats = check_ssd_kernel(dev)
     timings["ssd_scan check"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    flash_stats = check_flash_kernel(dev)
+    timings["flash_attention check"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     golden(dev)
@@ -703,6 +1028,22 @@ def main():
     t0 = time.perf_counter()
     ssd_launches = serve_main_path(dev)
     timings["serving main path"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    score_golden(dev)
+    timings["scoring golden"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    flash_launches = score_main_path(dev)
+    timings["scoring main path"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    serve_golden(dev, "qwen3-1.7b")
+    timings["dense serving golden"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    dense_serve_main_path(dev)
+    timings["dense serving main path"] = time.perf_counter() - t0
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in timings.items()))
 
@@ -714,7 +1055,11 @@ def main():
         dict(name="ssd_scan", route="cuda",
              source="src/repro_torch/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan/kernel.py:52",
-             launches=ssd_launches, library_ms=None, **ssd_stats)]}))
+             launches=ssd_launches, library_ms=None, **ssd_stats),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/kernel.py:67",
+             launches=flash_launches, **flash_stats)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,10 +4,12 @@
         [--full] [--device cuda|cpu] --requests 12 --slots 4
 
 The flags are the reference launcher's (`repro.launch.serve`) plus
-`--device` (default ``cuda``).  The model runs with
-``use_flash_kernel=True``: the SSD scan goes through its CUDA kernel on
-the card and through the kernel's plain version on the CPU.  Weights are
-random, drawn from a generator seeded with 0 on the device.
+`--device` (default ``cuda``); `--arch` takes ``mamba2-2.7b`` or
+``qwen3-1.7b``.  The model runs with ``use_flash_kernel=True``: Mamba2's
+SSD scan goes through its CUDA kernel on the card and through the
+kernel's plain version on the CPU; a dense model's prefill and decode
+use the plain attention, as the reference's do.  Weights are random,
+drawn from a generator seeded with 0 on the device.
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
-"""Model facade (port of `repro.models.api`), the SSM family so far.
+"""Model facade (port of `repro.models.api`), the SSM and dense families.
 
 `Model(cfg, device)` exposes
     spec / init / n_params
+    loss(params, batch) → (loss, metrics)                 — scoring objective
     prefill(params, batch, max_seq) → (logits, caches)   — prompt phase
     decode_step(params, token, pos, caches)               — decode phase
     init_caches
@@ -32,6 +33,13 @@ class Model:
 
     def n_params(self) -> int:
         return n_params(self.spec)
+
+    # --- scoring ---
+    def loss(self, params, batch):
+        """The training objective's forward (`lm.lm_loss`).  With
+        `use_flash_kernel` it runs the flash kernel, which has no
+        gradient: call it under `torch.no_grad()`."""
+        return lm.lm_loss(self.cfg, params, batch, interpret=self.interpret)
 
     # --- serving ---
     def prefill(self, params, batch, max_seq: int):

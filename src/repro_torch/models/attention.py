@@ -1,0 +1,211 @@
+"""Grouped-query attention (port of `repro.models.attention`): the full
+causal forward of scoring and prefill, and decode with a KV cache.
+
+The default math path is plain PyTorch (`_sdpa`, or `_sdpa_blockwise`
+for long sequences).  `cfg.use_flash_kernel` switches the scoring
+forward (`attention`, causal) to `repro_torch.kernels.flash_attention`,
+the hand-written CUDA kernel on the card; prefill and decode always take
+the plain path, as in the reference.  Cross-attention and M-RoPE come
+with later model-zoo slices (ROADMAP.md, queue 1, item 11).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ArchConfig
+from ..kernels.flash_attention import ops as fa
+from .layers import apply_rope, rms_norm
+from .params import ParamDef, Spec
+
+NEG_INF = -2.0e38
+
+
+def attn_spec(cfg: ArchConfig) -> Spec:
+    d, H, Hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    spec = {
+        "q": ParamDef((d, H, hd), ("embed", "heads", "head_dim")),
+        "k": ParamDef((d, Hk, hd), ("embed", "kv_heads", "head_dim")),
+        "v": ParamDef((d, Hk, hd), ("embed", "kv_heads", "head_dim")),
+        "o": ParamDef((H, hd, d), ("heads", "head_dim", "embed")),
+    }
+    if cfg.qk_norm:
+        spec["q_norm"] = ParamDef((hd,), ("head_dim",), init="ones")
+        spec["k_norm"] = ParamDef((hd,), ("head_dim",), init="ones")
+    return spec
+
+
+def _project_qkv(cfg: ArchConfig, p, x, positions=None):
+    """q [B,S,H,hd], k and v [B,S,Hk,hd]; qk-norm per head, then RoPE."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["q"].to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", x, p["k"].to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", x, p["v"].to(x.dtype))
+    if cfg.qk_norm and "q_norm" in p:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if positions is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _sqrt_hd(hd: int):
+    """√hd in float32, as `jnp.sqrt(hd).astype(jnp.float32)`."""
+    return torch.sqrt(torch.tensor(hd, dtype=torch.float32))
+
+
+def _sdpa(cfg: ArchConfig, q, k, v, mask):
+    """q: [B,Sq,H,hd]; k,v: [B,Skv,Hk,hd]; mask broadcastable to
+    [B,1,Sq,Skv] (True = attend).  Mixed types promote, as `jnp.einsum`
+    does (a float32 query against the bfloat16 cache); the softmax weights
+    are cast to q's type before the PV product."""
+    B, Sq, H, hd = q.shape
+    Hk = k.shape[2]
+    G = H // Hk
+    qg = q.reshape(B, Sq, Hk, G, hd)
+    dt = torch.promote_types(q.dtype, k.dtype)
+    logits = torch.einsum("bqhgk,bshk->bhgqs", qg.to(dt), k.to(dt)).float()
+    logits = logits / _sqrt_hd(hd).to(logits.device)
+    if cfg.attn_logits_soft_cap:
+        c = cfg.attn_logits_soft_cap
+        logits = c * torch.tanh(logits / c)
+    logits = torch.where(mask[:, :, None] if mask.dim() == 4 else mask,
+                         logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    dt = torch.promote_types(w.dtype, v.dtype)
+    out = torch.einsum("bhgqs,bshk->bqhgk", w.to(dt), v.to(dt))
+    return out.reshape(B, Sq, H, hd)
+
+
+# Use blockwise (online-softmax) attention above this many score elements.
+_BLOCKWISE_THRESHOLD = 4096 * 4096
+
+
+def _sdpa_blockwise(cfg: ArchConfig, q, k, v, causal: bool,
+                    q_chunk: int = 512, kv_chunk: int = 1024):
+    """Flash-style double-blocked attention in plain PyTorch: loops over
+    query blocks and, for each, key/value blocks with an online-softmax
+    carry; never materializes [Sq,Skv] scores."""
+    B, Sq0, H, hd = q.shape
+    Skv0 = k.shape[1]
+    Hk = k.shape[2]
+    G = H // Hk
+    qc = max(1, min(q_chunk, Sq0))
+    kc = max(1, min(kv_chunk, Skv0))
+    # pad instead of shrinking blocks; padded KV columns are masked below
+    qpad, kpad = (-Sq0) % qc, (-Skv0) % kc
+    q = F.pad(q, (0, 0, 0, 0, 0, qpad))
+    k = F.pad(k, (0, 0, 0, 0, 0, kpad))
+    v = F.pad(v, (0, 0, 0, 0, 0, kpad))
+    Sq, Skv = Sq0 + qpad, Skv0 + kpad
+    dev = q.device
+    scale = (1.0 / _sqrt_hd(hd)).to(dev)
+
+    blocks = []
+    for q0 in range(0, Sq, qc):
+        qblk = q[:, q0:q0 + qc].reshape(B, qc, Hk, G, hd)
+        q_pos = q0 + torch.arange(qc, device=dev)
+        m = torch.full((B, Hk, G, qc), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, Hk, G, qc), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, Hk, G, qc, hd), dtype=torch.float32,
+                          device=dev)
+        for k0 in range(0, Skv, kc):
+            kblk, vblk = k[:, k0:k0 + kc], v[:, k0:k0 + kc]
+            s = torch.einsum("bqhgk,bshk->bhgqs", qblk, kblk).float() * scale
+            if cfg.attn_logits_soft_cap:
+                c = cfg.attn_logits_soft_cap
+                s = c * torch.tanh(s / c)
+            k_pos = k0 + torch.arange(kc, device=dev)
+            mask = k_pos[None, :] < Skv0                   # padded KV cols
+            if causal:
+                mask = mask & (q_pos[:, None] >= k_pos[None, :])
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))       # [B,Hk,G,qc]
+            corr = torch.exp(m - m_new)
+            p_ = torch.exp(s - m_new[..., None])
+            l = l * corr + p_.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhgqs,bshk->bhgqk", p_, vblk.float())
+            m = m_new
+        out = acc / torch.clamp_min(l[..., None], 1e-30)   # [B,Hk,G,qc,hd]
+        out = out.permute(0, 3, 1, 2, 4).reshape(B, qc, H, hd)
+        blocks.append(out.to(q.dtype))
+    return torch.cat(blocks, dim=1)[:, :Sq0]
+
+
+def _dispatch_sdpa(cfg: ArchConfig, q, k, v, causal: bool, mask=None):
+    """Pick the O(S²)-mask path (small) or blockwise path (large)."""
+    Sq, Skv = q.shape[1], k.shape[1]
+    if Sq * Skv >= _BLOCKWISE_THRESHOLD and mask is None:
+        return _sdpa_blockwise(cfg, q, k, v, causal)
+    if mask is None:
+        if causal:
+            qp = torch.arange(Sq, device=q.device)
+            kp = torch.arange(Skv, device=q.device)
+            mask = (qp[:, None] >= kp[None, :])[None, None]
+        else:
+            mask = torch.ones((1, 1, Sq, Skv), dtype=torch.bool,
+                              device=q.device)
+    return _sdpa(cfg, q, k, v, mask)
+
+
+def attention(cfg: ArchConfig, p, x, positions, causal=True,
+              interpret: bool = False):
+    """Full self-attention of the scoring forward.  With
+    `cfg.use_flash_kernel` and a causal mask it goes through the flash
+    kernel (its plain version on the CPU or under `interpret=True`), which
+    has no gradient."""
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    if cfg.use_flash_kernel and causal:
+        out = fa.flash_attention(q, k, v, causal=True, interpret=interpret)
+    else:
+        out = _dispatch_sdpa(cfg, q, k, v, causal)
+    return torch.einsum("bshk,hkd->bsd", out, p["o"].to(out.dtype))
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor       # [B, Smax, Hk, hd]
+    v: torch.Tensor
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
+               dtype=torch.bfloat16, device=None) -> KVCache:
+    shape = (batch, max_seq, cfg.n_kv_heads, cfg.hd)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _write(cache: KVCache, k, v, start: int) -> KVCache:
+    """Write k, v [B,S,Hk,hd] at sequence index `start`, in place (the
+    reference's `dynamic_update_slice` makes a new array; the port writes
+    into the caller's tensors, which may be views of the stacked
+    caches)."""
+    cache.k[:, start:start + k.shape[1]] = k.to(cache.k.dtype)
+    cache.v[:, start:start + v.shape[1]] = v.to(cache.v.dtype)
+    return cache
+
+
+def prefill_attention(cfg: ArchConfig, p, x, positions, cache: KVCache):
+    """Causal attention that also writes the prompt K/V into the cache."""
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    cache = _write(cache, k, v, 0)
+    out = _dispatch_sdpa(cfg, q, k, v, causal=True)
+    y = torch.einsum("bshk,hkd->bsd", out, p["o"].to(out.dtype))
+    return y, cache
+
+
+def decode_attention(cfg: ArchConfig, p, x, pos: int, cache: KVCache):
+    """One-token decode: x [B,1,d]; `pos` the current index (same for all
+    batch rows).  Returns (y [B,1,d], cache')."""
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    cache = _write(cache, k, v, pos)
+    Smax = cache.k.shape[1]
+    mask = (torch.arange(Smax, device=x.device)[None, None, :] <= pos)[:, None]
+    out = _sdpa(cfg, q, cache.k, cache.v, mask)
+    y = torch.einsum("bshk,hkd->bsd", out, p["o"].to(out.dtype))
+    return y, cache

@@ -1,9 +1,11 @@
-"""Layer primitives the SSM family uses (port of `repro.models.layers`):
-the RMS norm and the token embedding and head.  RoPE and the MLPs come
-with the dense slice."""
+"""Shared layer primitives (port of `repro.models.layers`): the RMS norm,
+rotary embeddings (plain RoPE; M-RoPE comes with the VLM slice), the MLP
+variants (SwiGLU / squared-ReLU / GELU), the token embedding and head,
+and the chunked cross-entropy."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from .params import ParamDef, Spec
@@ -14,6 +16,48 @@ def rms_norm(x, scale, eps=1e-6):
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def rope_freqs(hd: int, theta: float, device=None):
+    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                         device=device) / hd))
+
+
+def apply_rope(x, positions, theta: float = 1e6):
+    """x: [B, S, H, hd]; positions: [B, S] (int).  Split halves rotated in
+    float32, cast back to x's type."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                 # [hd/2]
+    angles = positions[..., None].float() * freqs           # [B,S,hd/2]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def mlp_spec(cfg: ArchConfig) -> Spec:
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.act == "swiglu":
+        return {
+            "wi0": ParamDef((d, f), ("embed", "mlp")),
+            "wi1": ParamDef((d, f), ("embed", "mlp")),
+            "wo": ParamDef((f, d), ("mlp", "embed")),
+        }
+    return {
+        "wi": ParamDef((d, f), ("embed", "mlp")),
+        "wo": ParamDef((f, d), ("mlp", "embed")),
+    }
+
+
+def mlp_apply(cfg: ArchConfig, p, x):
+    if cfg.act == "swiglu":
+        h = F.silu(x @ p["wi0"]) * (x @ p["wi1"])
+    elif cfg.act == "sq_relu":
+        h = torch.square(F.relu(x @ p["wi"]))
+    else:
+        h = F.gelu(x @ p["wi"], approximate="tanh")   # jax.nn.gelu's default
+    return h @ p["wo"]
 
 
 def embed_spec(cfg: ArchConfig) -> Spec:
@@ -36,3 +80,30 @@ def unembed(cfg: ArchConfig, p, x, eps=1e-6):
     x = rms_norm(x, p["final_norm"], eps)
     w = p["tok"].T if cfg.tie_embeddings else p["head"]
     return (x @ w.to(x.dtype)).float()
+
+
+def chunked_ce(cfg: ArchConfig, p, hidden, labels, chunk: int = 512):
+    """Cross-entropy without materializing [B,S,vocab] logits: logits are
+    computed per sequence chunk in float32, labels < 0 are masked, and a
+    sequence off the chunk is padded with label −1.  Returns (nll_sum
+    float32, count)."""
+    x = rms_norm(hidden, p["final_norm"], cfg.norm_eps)
+    w = p["tok"].T if cfg.tie_embeddings else p["head"]
+    B, S, d = x.shape
+    c = max(1, min(chunk, S))
+    pad = (-S) % c
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=x.device)
+    for i in range(0, S + pad, c):
+        xb, lb = x[:, i:i + c], labels[:, i:i + c]
+        logits = (xb @ w.to(xb.dtype)).float()
+        lse = torch.logsumexp(logits, dim=-1)               # [B,c]
+        valid = lb >= 0
+        gold = torch.gather(logits, -1,
+                            torch.where(valid, lb, 0)[..., None])[..., 0]
+        nll_sum = nll_sum + torch.where(valid, lse - gold, 0.0).sum()
+        cnt = cnt + valid.sum()
+    return nll_sum, cnt

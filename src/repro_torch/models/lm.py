@@ -1,45 +1,50 @@
-"""Decoder-only language models, the SSM family (Mamba2); port of
-`repro.models.lm`.
+"""Decoder-only language models, the SSM (Mamba2) and dense families; port
+of `repro.models.lm`.
 
-One parameter spec and the serving entry points `prefill` and
-`decode_step`.  The layers' parameters and caches are stacked along a
-leading layer axis, as in the reference, and a Python loop walks that
-axis in place of `lax.scan`.  The dense, MoE, hybrid and VLM families
-raise `NotImplementedError` until their layers are ported (ROADMAP.md,
-queue 1, item 11).
+One parameter spec and the entry points `forward_hidden`,
+`forward_train` and `lm_loss` (the scoring forward), `prefill` and
+`decode_step` (serving).  The layers' parameters and caches are stacked
+along a leading layer axis, as in the reference, and a Python loop walks
+that axis in place of `lax.scan`.  The port has no training step yet, so
+`remat` is not read.  The MoE, hybrid, VLM and audio families raise
+`NotImplementedError` until their layers are ported (ROADMAP.md, queue 1,
+item 11).
 """
 from __future__ import annotations
+
+from typing import Dict, Tuple
 
 import torch
 
 from ..configs.base import ArchConfig
+from . import attention as attn
 from . import ssm as ssm_lib
-from .layers import embed_spec, embed_tokens, rms_norm, unembed
+from .layers import (chunked_ce, embed_spec, embed_tokens, mlp_apply,
+                     mlp_spec, rms_norm, unembed)
 from .params import ParamDef, Spec, stack_spec
-
-
-def _check_family(cfg: ArchConfig):
-    if cfg.family != "ssm":
-        raise NotImplementedError(
-            f"the {cfg.family} family ({cfg.name}) is not ported yet: its "
-            "attention, MoE and dense layers come with the model-zoo "
-            "slices (ROADMAP.md, queue 1, item 11)")
 
 
 def _layer_kinds(cfg: ArchConfig):
     """Per-layer (mixer, ffn) kinds of the stack."""
-    _check_family(cfg)
-    return [("mamba", "none")]
+    if cfg.family == "ssm":
+        return [("mamba", "none")]
+    if cfg.family == "dense" and not cfg.is_moe:
+        return [("attn", "mlp")]
+    raise NotImplementedError(
+        f"the {cfg.family} family ({cfg.name}) is not ported yet: its "
+        "layers come with a later model-zoo slice (ROADMAP.md, queue 1, "
+        "item 11)")
 
 
 def block_spec(cfg: ArchConfig, mixer: str, ffn: str) -> Spec:
-    if (mixer, ffn) != ("mamba", "none"):
-        raise NotImplementedError(
-            f"({mixer}, {ffn}) blocks are not ported yet (ROADMAP.md, "
-            "queue 1, item 11)")
     d = cfg.d_model
-    return {"norm1": ParamDef((d,), ("embed",), init="ones"),
-            "mixer": ssm_lib.ssm_spec(cfg)}
+    s: Spec = {"norm1": ParamDef((d,), ("embed",), init="ones")}
+    s["mixer"] = attn.attn_spec(cfg) if mixer == "attn" else \
+        ssm_lib.ssm_spec(cfg)
+    if ffn != "none":
+        s["norm2"] = ParamDef((d,), ("embed",), init="ones")
+        s["ffn"] = mlp_spec(cfg)
+    return s
 
 
 def lm_spec(cfg: ArchConfig) -> Spec:
@@ -49,16 +54,33 @@ def lm_spec(cfg: ArchConfig) -> Spec:
                                  "layers")}
 
 
-def _apply_block(cfg: ArchConfig, p, x, cache, mode: str,
+def _apply_block(cfg: ArchConfig, mixer: str, ffn: str, p, x, *,
+                 positions=None, cache=None, mode: str = "train", pos=None,
                  interpret: bool = False):
-    """Pre-norm mixer block with its residual (no FFN in the SSM family)."""
+    """Pre-norm mixer block with its residual, then the FFN and its
+    residual (no FFN in the SSM family)."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    if mode == "decode":
+    new_cache = cache
+    if mixer == "attn":
+        if mode == "train":
+            y = attn.attention(cfg, p["mixer"], h, positions,
+                               interpret=interpret)
+        elif mode == "prefill":
+            y, new_cache = attn.prefill_attention(cfg, p["mixer"], h,
+                                                  positions, cache)
+        else:
+            y, new_cache = attn.decode_attention(cfg, p["mixer"], h, pos,
+                                                 cache)
+    elif mode == "decode":
         y, new_cache = ssm_lib.ssm_decode_step(cfg, p["mixer"], h, cache)
     else:
         y, new_cache = ssm_lib.ssm_apply(cfg, p["mixer"], h, cache,
                                          interpret=interpret)
-    return x + y, new_cache
+    x = x + y
+    if ffn != "none":
+        x = x + mlp_apply(cfg, p["ffn"], rms_norm(x, p["norm2"],
+                                                  cfg.norm_eps))
+    return x, new_cache
 
 
 def _layer(tree, i: int):
@@ -66,49 +88,102 @@ def _layer(tree, i: int):
             for k, v in tree.items()}
 
 
-def _run_stack(cfg: ArchConfig, blocks_p, x, caches, mode: str,
+def _positions(x):
+    B, S = x.shape[:2]
+    return torch.arange(S, device=x.device)[None].expand(B, S)
+
+
+def _run_stack(cfg: ArchConfig, blocks_p, x, caches, mode: str, pos=None,
                interpret: bool = False):
-    """Walk the stacked layer axis; returns (x, caches stacked anew)."""
-    convs, hs = [], []
+    """Walk the stacked layer axis with caches; returns (x, caches).  The
+    attention layers write K/V into the stacked caches in place (each
+    layer's cache is a view of them); the SSM layers' new states are
+    stacked anew."""
+    ((mixer, ffn),) = _layer_kinds(cfg)
+    positions = _positions(x) if mode == "prefill" else None
+    news = []
     for i in range(cfg.n_layers):
-        cache_l = ssm_lib.SSMCache(caches.conv[i], caches.h[i])
-        x, new = _apply_block(cfg, _layer(blocks_p, i), x, cache_l, mode,
-                              interpret)
-        convs.append(new.conv)
-        hs.append(new.h)
-    return x, ssm_lib.SSMCache(torch.stack(convs), torch.stack(hs))
+        cache_l = type(caches)(*(t[i] for t in caches))
+        x, new = _apply_block(cfg, mixer, ffn, _layer(blocks_p, i), x,
+                              positions=positions, cache=cache_l, mode=mode,
+                              pos=pos, interpret=interpret)
+        news.append(new)
+    if mixer == "attn":
+        return x, caches
+    return x, type(caches)(*(torch.stack(ts) for ts in zip(*news)))
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_seq: int,
                 dtype=torch.bfloat16, device=None):
-    """Stacked per-layer caches [L, batch, …]: the conv state in `dtype`,
-    the SSM state in float32.  `max_seq` is unused by the SSM family."""
-    _check_family(cfg)
-    one = ssm_lib.init_ssm_cache(cfg, batch, dtype, device)
-    return ssm_lib.SSMCache(
+    """Stacked per-layer caches [L, batch, …]: K/V in `dtype` (dense), or
+    the conv state in `dtype` and the SSM state in float32 (`max_seq` is
+    unused by the SSM family)."""
+    ((mixer, _),) = _layer_kinds(cfg)
+    if mixer == "attn":
+        one = attn.init_cache(cfg, batch, max_seq, dtype, device)
+    else:
+        one = ssm_lib.init_ssm_cache(cfg, batch, dtype, device)
+    return type(one)(
         *(t[None].expand((cfg.n_layers,) + t.shape).contiguous()
           for t in one))
 
 
+def forward_hidden(cfg: ArchConfig, params, tokens, interpret: bool = False):
+    """tokens [B,S] (inputs) → (hidden [B,S,d], aux_loss 0)."""
+    ((mixer, ffn),) = _layer_kinds(cfg)
+    x = embed_tokens(params["embed"], tokens)
+    positions = _positions(x)
+    for i in range(cfg.n_layers):
+        x, _ = _apply_block(cfg, mixer, ffn, _layer(params["blocks"], i), x,
+                            positions=positions, mode="train",
+                            interpret=interpret)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward_train(cfg: ArchConfig, params, tokens, interpret: bool = False):
+    """Full-logits variant (tests / small models)."""
+    x, aux = forward_hidden(cfg, params, tokens, interpret)
+    return unembed(cfg, params["embed"], x, cfg.norm_eps), aux
+
+
+def lm_loss(cfg: ArchConfig, params, batch,
+            interpret: bool = False) -> Tuple[torch.Tensor, Dict]:
+    """Causal LM loss via chunked CE (never materializes full logits).
+    batch: {"tokens": [B,S]}.  Inputs keep the full length S; the last
+    position's label is −1 (masked), as in the reference."""
+    tokens = batch["tokens"]
+    labels = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -1)],
+                       dim=1)
+    hidden, aux = forward_hidden(cfg, params, tokens, interpret)
+    nll_sum, cnt = chunked_ce(cfg, params["embed"], hidden, labels)
+    denom = torch.clamp_min(cnt, 1)
+    loss = nll_sum / denom
+    total = loss + cfg.router_aux_coef * aux
+    return total, {"loss": loss, "aux_loss": aux,
+                   "tokens": denom.to(torch.float32)}
+
+
 def prefill(cfg: ArchConfig, params, tokens, max_seq: int, caches=None,
             interpret: bool = False):
-    """Prompt processing; writes the SSM caches (bfloat16 conv state
-    unless `caches` are given).  Returns (logits_last [B,vocab], caches,
-    seq_len)."""
+    """Prompt processing; writes the caches (K/V, or the SSM state with a
+    bfloat16 conv state, unless `caches` are given).  Returns
+    (logits_last [B,vocab], caches, seq_len)."""
     x = embed_tokens(params["embed"], tokens)
     B, S, _ = x.shape
     if caches is None:
         caches = init_caches(cfg, B, max_seq, device=x.device)
     x, caches = _run_stack(cfg, params["blocks"], x, caches, "prefill",
-                           interpret)
+                           interpret=interpret)
     logits = unembed(cfg, params["embed"], x[:, -1:], cfg.norm_eps)
     return logits[:, 0], caches, S
 
 
 def decode_step(cfg: ArchConfig, params, token, pos, caches):
-    """One decode step.  token [B,1] int; `pos` (the shared position) is
-    not read by the SSM family.  Returns (logits [B,vocab], new_caches)."""
+    """One decode step.  token [B,1] int; `pos` the shared current index
+    (not read by the SSM family).  Returns (logits [B,vocab],
+    new_caches)."""
     x = embed_tokens(params["embed"], token)
-    x, caches = _run_stack(cfg, params["blocks"], x, caches, "decode")
+    x, caches = _run_stack(cfg, params["blocks"], x, caches, "decode",
+                           pos=int(pos))
     logits = unembed(cfg, params["embed"], x, cfg.norm_eps)
     return logits[:, 0], caches

@@ -125,3 +125,6 @@ class ServeEngine:
             self.step()
             steps += 1
         return steps
+
+    def throughput_tokens_per_s(self, t0: float) -> float:
+        return self.stats["tokens"] / max(time.time() - t0, 1e-9)

@@ -165,3 +165,107 @@ def test_ssd_kernel_shared_memory_formula(cuda):
                             (256, 64, 128, 2), (8, 16, 16, 4)):
         assert lib.ssd_intra_chunk_smem_bytes(Q, hd, st, elem) == \
             ssd_kernel.smem_bytes(Q, hd, st, elem)
+
+
+# ---- flash_attention (dense scoring forward) ----
+
+FLASH_RTOL = 1e-5      # float32: of the plain version's largest |value|
+BF16_ULP = 2.0 ** -7   # bf16: one ulp of each value, plus the float32 term
+
+
+def flash_inputs(seed, device, B, S, H, Hk, hd, dtype):
+    rng = np.random.default_rng(seed)
+    t = lambda *s: torch.as_tensor(rng.standard_normal(s).astype(np.float32),
+                                   device=device).to(dtype)
+    return t(B, S, H, hd), t(B, S, Hk, hd), t(B, S, Hk, hd)
+
+
+def assert_flash_close(got, want):
+    """float32: max |got − want| ≤ 1e-5·max |want|; bf16: every element
+    within one bf16 ulp of `want` plus that float32 term."""
+    dtype = want.dtype
+    got, want = got.float(), want.float()
+    scale = float(want.abs().max())
+    err = (got - want).abs()
+    if dtype == torch.float32:
+        bound = FLASH_RTOL * scale
+    else:
+        bound = BF16_ULP * want.abs() + FLASH_RTOL * scale
+    assert bool((err <= bound).all()), float((err - bound).max())
+
+
+@pytest.mark.parametrize("B,S,H,Hk,hd,causal,dtype", [
+    (2, 128, 4, 2, 32, True, torch.float32),
+    (1, 96, 2, 2, 16, False, torch.float32),
+    (2, 64, 4, 1, 64, True, torch.bfloat16),
+    (1, 80, 8, 4, 32, True, torch.float32),       # S off the block
+    (1, 200, 4, 2, 128, True, torch.bfloat16),    # two 128-key tiles, pad
+    (2, 300, 4, 4, 128, False, torch.float32),
+    (1, 8, 4, 2, 16, True, torch.float32),        # the smoke prefill's block
+    (1, 1000, 16, 8, 128, True, torch.bfloat16),
+])
+def test_flash_kernel_matches_plain_version(cuda, B, S, H, Hk, hd, causal,
+                                            dtype):
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    q, k, v = flash_inputs(S + hd, cuda, B, S, H, Hk, hd, dtype)
+    before = fk.flash_attention_bhsd.launches
+    got = fops.flash_attention(q, k, v, causal=causal)
+    want = fops.flash_attention(q, k, v, causal=causal, interpret=True)
+    torch.cuda.synchronize()
+    assert fk.flash_attention_bhsd.launches == before + 1
+    assert got.dtype == dtype and got.shape == (B, S, H, hd)
+    assert bool(torch.isfinite(got).all())
+    assert_flash_close(got, want)
+
+
+@pytest.mark.parametrize("block", [8, 16, 32, 64])
+def test_flash_kernel_small_blocks(cuda, block):
+    """The online-softmax update per `block` keys, as the plain version."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    q, k, v = flash_inputs(block, cuda, 2, 77, 4, 2, 64, torch.float32)
+    for causal in (True, False):
+        assert_flash_close(
+            fops.flash_attention(q, k, v, causal=causal, block_q=block,
+                                 block_k=block),
+            fops.flash_attention(q, k, v, causal=causal, block_q=block,
+                                 block_k=block, interpret=True))
+
+
+def test_flash_kernel_rejects_an_unsupported_head_dim(cuda):
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    q, k, v = flash_inputs(0, cuda, 1, 64, 2, 1, 96, torch.bfloat16)
+    before = fk.flash_attention_bhsd.launches
+    with pytest.raises(ValueError, match="head dim 96"):
+        fops.flash_attention(q, k, v)
+    assert fk.flash_attention_bhsd.launches == before
+
+
+def test_flash_kernel_raises_under_grad(cuda):
+    from repro_torch.kernels.flash_attention import ops as fops
+    q, k, v = flash_inputs(0, cuda, 1, 64, 2, 1, 64, torch.float32)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fops.flash_attention(q.requires_grad_(), k, v)
+
+
+def test_dense_loss_launches_the_kernel_once_per_layer(cuda):
+    import dataclasses
+    from repro_torch.configs.qwen3_1p7b import smoke_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models.api import build_model
+    cfg = dataclasses.replace(smoke_config(), use_flash_kernel=True)
+    model = build_model(cfg, cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0),
+                        torch.float32)
+    tokens = torch.as_tensor(
+        np.random.default_rng(0).integers(0, cfg.vocab, (2, 40)),
+        device=cuda)
+    with torch.no_grad():
+        before = fk.flash_attention_bhsd.launches
+        loss, metrics = model.loss(params, {"tokens": tokens})
+        assert fk.flash_attention_bhsd.launches - before == cfg.n_layers
+        plain, _ = build_model(cfg, cuda, interpret=True).loss(
+            params, {"tokens": tokens})
+    assert float(metrics["tokens"]) == 2 * 39
+    assert abs(float(loss) - float(plain)) <= 1e-5 * abs(float(plain))

@@ -259,7 +259,7 @@ def test_init_follows_the_reference_distributions():
 
 
 @pytest.mark.parametrize("arch", [a for a in t_base.ARCH_IDS
-                                  if a != "mamba2-2.7b"])
+                                  if a not in t_base.PORTED])
 def test_unported_architectures_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         t_base.get_config(arch)
@@ -271,4 +271,4 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_model(smoke_config())
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_lm.lm_spec(dataclasses.replace(smoke_config(), family="dense"))
+        t_lm.lm_spec(dataclasses.replace(smoke_config(), family="moe"))
