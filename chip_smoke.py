@@ -26,7 +26,15 @@ read just after:
   layer per call;
 * Qwen3-1.7B serving: the smoke golden, then the full-width model behind
   `ServeEngine` with Mamba2's traffic; its prefill and decode use the
-  plain attention, as the reference's do, and launch no kernel.
+  plain attention, as the reference's do, and launch no kernel;
+* granite-moe-1b-a400m serving: the smoke golden, with its CPU-vs-card
+  gap taken apart by stage and held below what one wrong route moves,
+  then the full-width model (24 layers, d_model 1024, 32 experts,
+  top-8, bf16 weights drawn from a generator seeded with 0) behind
+  `ServeEngine` with the same traffic; its MoE router launches
+  `gating_topk` once per layer per prefill and per decode step, and a
+  run with the plain router (use_flash_kernel=False) must give the same
+  tokens.
 
 Float32 matrix products run in full float32 (TF32 off).  It fails, and
 prints no result, without a CUDA device or without the port beside it.
@@ -64,6 +72,12 @@ SSD_NAIVE_RTOL = 1e-4
 # (bitwise expected, as above) and of the card vs the CPU at float32
 SERVE_LOGIT_ATOL = 5e-2
 GOLDEN_LOGIT_ATOL = 1e-4
+# the MoE smoke golden: granite's attention has no qk-norm, so its float32
+# scores reach ~100 and the CPU and the card round them apart by more
+# than the dense goldens (moe_golden_breakdown prints each stage's gap).
+# The bound sits above that gap and below the smallest change that one
+# wrong route makes in the same logits; the phase fails unless it does.
+MOE_GOLDEN_LOGIT_ATOL = 5e-5
 # flash_attention check: kernel vs its plain version, which differ only in
 # the order of the sums inside a key tile.  float32: max |kernel − plain|
 # <= FLASH_F32_RTOL·max |plain|.  bf16: each element within one bf16 ulp
@@ -74,6 +88,13 @@ GOLDEN_LOGIT_ATOL = 1e-4
 # bf16 ulp of the element itself.
 FLASH_F32_RTOL = 1e-5
 FLASH_BF16_ULP = 2.0 ** -7
+# gating_topk check: kernel vs its plain version, the same float32
+# operations in the same order.  Ids must be equal, in order, in every row
+# whose k-th and (k+1)-th probabilities differ by more than
+# GATING_MARGIN_ULP float32 ulps (closer rows are counted and printed);
+# gates within GATING_GATE_ATOL there.
+GATING_MARGIN_ULP = 4
+GATING_GATE_ATOL = 1e-6
 # the scoring main path: Model.loss on [4, 4096] tokens, the reference's
 # train_4k sequence length at batch 4 (src/repro/launch/shapes.py)
 SCORE_BATCH, SCORE_SEQ, SCORE_CALLS = 4, 4096, 3
@@ -587,6 +608,108 @@ def check_flash_kernel(dev):
                 bound_ms=bound_s * 1e3, bound_by=by, library_ms=library_ms)
 
 
+# -------------------------------------------------------------- moe_gating
+
+GATING_SHAPES = ((128, 16, 2), (100, 64, 6), (256, 32, 8), (64, 8, 1),
+                 (1024, 32, 8), (4, 32, 8), (16384, 32, 8))
+
+
+def gating_logits(dev, N, E, seed):
+    """Router-like logits: float32 normals of scale 2 from a seeded
+    generator on the card."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return 2.0 * torch.randn((N, E), generator=g, device=dev)
+
+
+def gating_bound(N, E, k):
+    """(bytes, operations) of one launch: logits read once, gates and ids
+    written once; per row the max, the subtraction, exp, sum and division
+    over E, k compare passes over E, k adds and k divisions."""
+    return N * E * 4 + N * k * 8, N * (5 * E + k * E + 2 * k)
+
+
+def check_gating_case(dev, N, E, k, seed):
+    """The kernel through `ops.fused_gating` against the plain version on
+    the same logits.  Returns (rows inside the margin, max gate error,
+    bitwise equal)."""
+    import torch
+    from repro_torch.kernels.moe_gating import kernel as gk
+    from repro_torch.kernels.moe_gating import ops as gops
+    from repro_torch.kernels.moe_gating.ref import reference_gating
+    x = gating_logits(dev, N, E, seed)
+    before = gk.gating_topk.launches
+    gate, idx = gops.fused_gating(x, k)
+    want_gate, want_idx = reference_gating(x, k)
+    torch.cuda.synchronize()
+    if gk.gating_topk.launches != before + 1:
+        raise AssertionError("gating_topk: the kernel was not launched")
+    if gate.shape != (N, k) or idx.dtype != torch.int32 or \
+            not torch.isfinite(gate).all():
+        raise AssertionError(f"gating_topk N={N} E={E} k={k}: output "
+                             f"{tuple(gate.shape)} {idx.dtype} or not finite")
+    probs = torch.softmax(x, dim=-1).sort(dim=-1, descending=True).values
+    pk = probs[:, k - 1]
+    ulp = torch.nextafter(pk, torch.full_like(pk, 2.0)) - pk
+    clear = (pk - probs[:, k]) > GATING_MARGIN_ULP * ulp
+    near = int((~clear).sum())
+    if not torch.equal(idx[clear], want_idx[clear]):
+        raise AssertionError(f"gating_topk N={N} E={E} k={k}: ids differ "
+                             "from the plain version")
+    err = float((gate[clear] - want_gate[clear]).abs().max())
+    if not err <= GATING_GATE_ATOL:
+        raise AssertionError(f"gating_topk N={N} E={E} k={k}: gates differ "
+                             f"by {err}")
+    sums = float((gate.sum(-1) - 1).abs().max())
+    bitwise = torch.equal(gate, want_gate) and torch.equal(idx, want_idx)
+    print(f"kernel check: gating_topk N={N} E={E} k={k}: ids equal in order "
+          f"in {N - near} rows outside the {GATING_MARGIN_ULP}-ulp margin, "
+          f"{near} rows inside it; gates max abs err {err:.3e} (tolerance "
+          f"{GATING_GATE_ATOL}); gate sums within {sums:.3e} of 1; bitwise "
+          f"equal {bitwise}")
+    return near, err, bitwise
+
+
+def check_gating_kernel(dev):
+    """The kernel against its plain version at the reference test's shapes
+    and the main path's (N 1024 per prefill, 4 per decode step, and
+    16384), a row of equal logits, then device times beside the bound."""
+    import torch
+    from repro_torch.kernels.moe_gating import kernel as gk
+    from repro_torch.kernels.moe_gating import ops as gops
+    from repro_torch.kernels.moe_gating.ref import reference_gating
+    results = [check_gating_case(dev, N, E, k, seed)
+               for seed, (N, E, k) in enumerate(GATING_SHAPES)]
+    near = sum(r[0] for r in results)
+    worst = max(r[1] for r in results)
+    ties = torch.zeros((3, 32), device=dev)
+    ties[1] = 1.5
+    gate, idx = gops.fused_gating(ties, 8)
+    if idx.tolist() != [list(range(8))] * 3 or \
+            not torch.equal(gate, torch.full_like(gate, 0.125)):
+        raise AssertionError(f"gating_topk: equal logits gave ids "
+                             f"{idx.tolist()}, gates {gate.tolist()}")
+    print(f"kernel check: gating_topk on rows of equal logits: ids 0..7, "
+          f"gates 1/8; {near} rows inside the margin over all shapes")
+    times = {}
+    for N in (4, 1024, 16384):
+        x = gating_logits(dev, N, 32, N)
+        ms = device_time_ms(lambda: gk.gating_topk(x, 8), 200)
+        plain_ms = device_time_ms(lambda: reference_gating(x, 8), 20)
+        n_bytes, n_ops = gating_bound(N, 32, 8)
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_FLOP_PER_S
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        times[N] = dict(ms=ms, plain_ms=plain_ms,
+                        bound_ms=max(t_bytes, t_ops) * 1e3, bound_by=by)
+        print(f"kernel time: gating_topk N={N} E=32 k=8: device time per "
+              f"call kernel {ms * 1e3:.3f} us, plain {plain_ms * 1e3:.3f} us; "
+              f"bound {max(t_bytes, t_ops) * 1e6:.4f} us ({by}: {n_bytes} B "
+              f"at 3.35 TB/s = {t_bytes * 1e6:.4f} us; {n_ops} operations at "
+              f"67 TFLOP/s float32 = {t_ops * 1e6:.4f} us)")
+    # the JSON line gives the prefill shape, N = 1024 tokens per launch
+    return dict(max_abs_err=worst, **times[1024])
+
+
 # ---------------------------------------------------------------- serving
 
 class Recorder:
@@ -657,9 +780,10 @@ def to_dev(tree, dev):
             for k, v in tree.items()}
 
 
-def serve_golden(dev, arch="mamba2-2.7b"):
+def serve_golden(dev, arch="mamba2-2.7b", atol=GOLDEN_LOGIT_ATOL):
     """smoke_config() in float32 on the CPU and on the card, same
-    weights: the same tokens, prefill logits within GOLDEN_LOGIT_ATOL."""
+    weights: the same tokens, prefill logits within `atol`.  Returns the
+    largest logit difference."""
     import dataclasses
     import numpy as np
     import torch
@@ -677,7 +801,7 @@ def serve_golden(dev, arch="mamba2-2.7b"):
     err = float((a["logits"] - b["logits"]).abs().max())
     if a["outputs"] != b["outputs"] or a["stats"] != b["stats"]:
         raise AssertionError("serving golden: tokens differ, CPU vs card")
-    if not err <= GOLDEN_LOGIT_ATOL:
+    if not err <= atol:
         raise AssertionError(f"serving golden: prefill logits differ by "
                              f"{err}, CPU vs card")
     print(f"serving golden: {arch} smoke_config ({cfg.n_layers} layers, "
@@ -685,7 +809,174 @@ def serve_golden(dev, arch="mamba2-2.7b"):
           f"2 slots: CPU "
           f"{a['wall']:.2f} s, card {b['wall']:.2f} s; tokens equal "
           f"({a['stats']}); prefill logits max abs diff {err:.3e} "
-          f"(tolerance {GOLDEN_LOGIT_ATOL})")
+          f"(tolerance {atol}) of max |logit| "
+          f"{float(a['logits'].abs().max()):.4f}")
+    return err
+
+
+def golden_prompts(cfg):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+    return torch.tensor(np.stack([rng.integers(0, cfg.vocab, size=8)
+                                  for _ in range(GOLDEN_REQUESTS)]))
+
+
+def moe_golden_breakdown(dev, gap):
+    """Where the MoE smoke golden's CPU-vs-card gap `gap` comes from, and
+    how far one wrong route moves the same logits.
+
+    The golden's prompts go through the smoke model's layers (float32,
+    flag on) as one batch, with the logits of every position.  Layer by
+    layer, each stage also runs on the card from the CPU's input and is
+    compared with the CPU's output: the attention block, the router
+    logits, the gates (the kernel on the card, the plain version on the
+    CPU, on the same logits) and the MoE block; the hidden state's gap is
+    also carried through the card's own run.  Then the card runs the
+    layers again once for every (layer, token) with that one route wrong
+    (the token's k-th expert replaced by its (k+1)-th).  Fails unless the
+    ids agree and the golden's gap and the all-position gap stay within
+    MOE_GOLDEN_LOGIT_ATOL, below the smallest change a wrong route makes
+    in the logits."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.kernels.moe_gating.ops import fused_gating
+    from repro_torch.kernels.moe_gating.ref import reference_gating
+    from repro_torch.models import attention as attn
+    from repro_torch.models import lm
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.api import build_model
+    from repro_torch.models.layers import embed_tokens, rms_norm, unembed
+    cfg = dataclasses.replace(get_smoke_config("granite-moe-1b-a400m"),
+                              use_flash_kernel=True)
+    pc = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0),
+                                      torch.float32)
+    pd = to_dev(pc, dev)
+    toks = golden_prompts(cfg)
+    d, k, eps = cfg.d_model, cfg.top_k, cfg.norm_eps
+    gap_of = lambda a, b: float((a.cpu() - b.cpu()).abs().max())
+
+    def attn_block(p, x):
+        cache = attn.init_cache(cfg, x.shape[0], x.shape[1], torch.float32,
+                                x.device)
+        h = rms_norm(x, p["norm1"], eps)
+        return x + attn.prefill_attention(cfg, p["mixer"], h,
+                                          lm._positions(x), cache)[0]
+
+    def moe_block(p, a):
+        h = rms_norm(a, p["norm2"], eps)
+        return h, a + moe_lib.moe_apply(cfg, p["ffn"], h, need_aux=False)[0]
+
+    def layers(params, tokens):
+        x = embed_tokens(params["embed"], tokens)
+        for i in range(cfg.n_layers):
+            x = moe_block(lm._layer(params["blocks"], i),
+                          attn_block(lm._layer(params["blocks"], i), x))[1]
+        return unembed(cfg, params["embed"], x, eps)
+
+    real = moe_lib.router_topk
+
+    def wrong_route(layer, row):
+        calls = [0]
+
+        def router(cfg, p, x, need_aux=True, interpret=False):
+            gate, idx, aux = real(cfg, p, x, need_aux, interpret)
+            if calls[0] == layer:
+                logits = (x @ p["router"].to(x.dtype)).float()
+                order = reference_gating(logits, cfg.top_k + 1)[1]
+                idx = idx.clone()
+                idx[row, -1] = order[row, -1]
+            calls[0] += 1
+            return gate, idx, aux
+        return router
+
+    with torch.no_grad():
+        # float32 against float64 on the CPU, stage by stage
+        p64 = to_dev(pc, torch.float64)
+        x64 = embed_tokens(p64["embed"], toks)
+        for i in range(cfg.n_layers):
+            l32, l64 = lm._layer(pc["blocks"], i), lm._layer(p64["blocks"], i)
+            a64 = attn_block(l64, x64)
+            a_err = gap_of(attn_block(l32, x64.float()), a64)
+            x64_next = moe_block(l64, a64)[1]
+            y_err = gap_of(moe_block(l32, a64.float())[1], x64_next)
+            x64 = x64_next
+            print(f"moe golden breakdown: layer {i}: float32 vs float64 on "
+                  f"the CPU from the float64 input: attention block "
+                  f"{a_err:.3e}, MoE block {y_err:.3e}")
+        x_c = embed_tokens(pc["embed"], toks)
+        x_d = embed_tokens(pd["embed"], toks.to(dev))
+        ids_equal = True
+        for i in range(cfg.n_layers):
+            lc, ld = lm._layer(pc["blocks"], i), lm._layer(pd["blocks"], i)
+            q, kk, _ = attn._project_qkv(cfg, lc["mixer"],
+                                         rms_norm(x_c, lc["norm1"], eps),
+                                         lm._positions(x_c))
+            kk = kk.repeat_interleave(cfg.n_heads // cfg.n_kv_heads, 2)
+            score = float(torch.einsum("bqhd,bkhd->bhqk", q, kk).abs().max()
+                          / cfg.hd ** 0.5)
+            a_c = attn_block(lc, x_c)
+            a_gap = gap_of(attn_block(ld, x_c.to(dev)), a_c)
+            h_c, y_c = moe_block(lc, a_c)
+            lg_c = (h_c.reshape(-1, d) @ lc["ffn"]["router"]).float()
+            lg_d = (h_c.to(dev).reshape(-1, d) @ ld["ffn"]["router"]).float()
+            g_c, i_c = fused_gating(lg_c, k)
+            g_d, i_d = fused_gating(lg_c.to(dev), k)
+            h_d, x_d = moe_block(ld, attn_block(ld, x_d))
+            own = fused_gating((h_d.reshape(-1, d) @ ld["ffn"]["router"])
+                               .float(), k)[1]
+            same = torch.equal(i_d.cpu(), i_c) and torch.equal(own.cpu(), i_c)
+            ids_equal &= same
+            y_gap = gap_of(moe_block(ld, a_c.to(dev))[1], y_c)
+            x_c = y_c
+            print(f"moe golden breakdown: layer {i}: max |q.k|/sqrt(hd) "
+                  f"{score:.2f}; card vs CPU from the CPU's input: attention "
+                  f"block {a_gap:.3e}, router logits {gap_of(lg_d, lg_c):.3e},"
+                  f" gates {gap_of(g_d, g_c):.3e}, MoE block {y_gap:.3e}; "
+                  f"ids equal (same logits and the card's own) {same}; "
+                  f"hidden carried through the card's run "
+                  f"{gap_of(x_d, x_c):.3e} of max |hidden| "
+                  f"{float(x_c.abs().max()):.3f}")
+        out_c = unembed(cfg, pc["embed"], x_c, eps)
+        out_d = unembed(cfg, pd["embed"], x_d, eps)
+        all_gap = gap_of(out_d, out_c)
+        print(f"moe golden breakdown: unembed from the CPU's input "
+              f"{gap_of(unembed(cfg, pd['embed'], x_c.to(dev), eps), out_c):.3e};"
+              f" logits at every position carried {all_gap:.3e}, at the "
+              f"last {gap_of(out_d[:, -1], out_c[:, -1]):.3e}")
+
+        right = layers(pd, toks.to(dev))
+        if not torch.equal(right, out_d):
+            raise AssertionError("moe golden: the layer walk is not repeatable")
+        changes, last = [], []
+        try:
+            for layer in range(cfg.n_layers):
+                for row in range(toks.numel()):
+                    moe_lib.router_topk = wrong_route(layer, row)
+                    got = layers(pd, toks.to(dev))
+                    moe_lib.router_topk = real
+                    changes.append(gap_of(got, right))
+                    last.append(gap_of(got[:, -1], right[:, -1]))
+        finally:
+            moe_lib.router_topk = real
+    bound = MOE_GOLDEN_LOGIT_ATOL
+    moved = sorted(c for c in changes if c > 0)
+    print(f"moe golden breakdown: one wrong route, {len(changes)} cases "
+          f"(layer, token): {len(changes) - len(moved)} change nothing (the "
+          f"token's choice is dropped at capacity either way); the others "
+          f"move the logits at every position by {moved[0]:.3e} at least, "
+          f"{moved[len(moved) // 2]:.3e} median; at the last position only "
+          f"{sum(c > bound for c in last)} move them by more than the bound "
+          f"(the rest are a later token's route in the last layer, or a "
+          f"token the last one barely attends to: {min(last):.3e} at least); "
+          f"gaps CPU vs card: golden {gap:.3e}, every position "
+          f"{all_gap:.3e}; bound {bound}")
+    if not ids_equal:
+        raise AssertionError("moe golden: the card routed a token otherwise")
+    if not max(gap, all_gap) <= bound < moved[0]:
+        raise AssertionError("moe golden: the bound does not separate the "
+                             "CPU-vs-card gap from a wrong route")
 
 
 def serve_main_path(dev):
@@ -827,6 +1118,107 @@ def dense_serve_main_path(dev):
           f"flash_attention launches 0; peak device memory {peak:.2f} GiB; "
           f"first tokens {[o[:4] for o in runs[0]['outputs'][:2]]}")
     profile_serving(serve, "dense serving")
+
+
+def moe_serve_main_path(dev):
+    """granite-moe-1b-a400m at full width behind `ServeEngine`, Mamba2's
+    traffic, use_flash_kernel=True: two runs, each launching gating_topk
+    once per layer per prefill and decode step, with equal tokens and
+    logits; then a run with the plain router (flag off, no launch) that
+    must give the same tokens; then one profiled run."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.granite_moe_1b_a400m import CONFIG
+    from repro_torch.kernels.moe_gating.kernel import gating_topk
+    from repro_torch.models.api import build_model
+    cfg = dataclasses.replace(CONFIG, use_flash_kernel=True)
+    model = build_model(cfg, dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"moe serving: {cfg.name}, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} query heads over {cfg.n_kv_heads} "
+          f"K/V heads x {cfg.hd}, {cfg.n_experts} experts top-{cfg.top_k} "
+          f"of d_ff {cfg.d_ff}, vocab {cfg.vocab}: {model.n_params():,} bf16 "
+          f"parameters drawn in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=SERVE["prompt_len"])
+               for _ in range(SERVE_REQUESTS)]
+    serve = lambda m: serve_once(m, params, prompts, SERVE, SERVE_NEW)
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(2):
+        gating_topk.launches = 0
+        runs.append(serve(model))
+        st = runs[-1]["stats"]
+        want = cfg.n_layers * (st["prefills"] + st["decode_steps"])
+        if gating_topk.launches != want or st["prefills"] != SERVE_REQUESTS:
+            raise AssertionError(f"moe serving: {gating_topk.launches} "
+                                 f"gating_topk launches for {st}")
+        runs[-1]["launches"] = gating_topk.launches
+    if runs[1]["outputs"] != runs[0]["outputs"] or \
+            not torch.equal(runs[1]["logits"], runs[0]["logits"]):
+        raise AssertionError("moe serving: a repeat run gave other tokens")
+    for out in runs[0]["outputs"]:
+        if len(out) != SERVE_NEW or not all(0 <= t < cfg.vocab for t in out):
+            raise AssertionError(f"moe serving: bad output {out}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    gating_topk.launches = 0
+    plain = serve(build_model(dataclasses.replace(cfg, use_flash_kernel=False),
+                              dev))
+    if gating_topk.launches != 0:
+        raise AssertionError("moe serving: the plain router launched the "
+                             "kernel")
+    if plain["outputs"] != runs[0]["outputs"]:
+        raise AssertionError("moe serving: the plain router gave other "
+                             "tokens")
+    err = float((plain["logits"] - runs[0]["logits"]).abs().max())
+    launches = runs[0]["launches"]
+    st = runs[0]["stats"]
+    print_serving_runs(runs, "moe serving")
+    print(f"moe serving: gating_topk launches {launches} (= {cfg.n_layers} "
+          f"layers x ({st['prefills']} prefills + {st['decode_steps']} decode "
+          f"steps)); repeat bitwise equal; the plain router's run "
+          f"({plain['wall']:.3f} s wall) gave the same tokens, prefill "
+          f"logits max abs diff {err:.3e}; every logit finite; peak device "
+          f"memory {peak:.2f} GiB; first tokens "
+          f"{[o[:4] for o in runs[0]['outputs'][:2]]}")
+    profile_serving(lambda: serve(model), "moe serving")
+    activation_cost(dev, cfg, runs[0])
+    return launches
+
+
+def activation_cost(dev, cfg, run, reps=2000):
+    """What the MoE layer's `silu` (XLA's rounding: four eager ops) costs
+    a decode step beside `F.silu` (one op): host wall time per call on the
+    decode step's expert activations [slots, E, C 1, d_ff] in bf16, over
+    `reps` calls, times the layers, beside the run's decode step."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models.moe import silu
+    g = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randn((SERVE["batch_slots"], cfg.n_experts, 1, cfg.d_ff),
+                    generator=g, device=dev).to(torch.bfloat16)
+
+    def wall(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps
+
+    t_silu, t_f = wall(lambda: silu(a)), wall(lambda: F.silu(a))
+    step = (run["wall"] - run["prefill_s"]) / run["stats"]["decode_steps"]
+    print(f"moe serving: expert activation at the decode shape "
+          f"{list(a.shape)} bf16, host wall per call over {reps} calls: "
+          f"moe.silu {t_silu * 1e6:.2f} us, F.silu {t_f * 1e6:.2f} us; x "
+          f"{cfg.n_layers} layers = {t_silu * cfg.n_layers * 1e3:.3f} ms vs "
+          f"{t_f * cfg.n_layers * 1e3:.3f} ms per decode step of "
+          f"{step * 1e3:.2f} ms")
 
 
 # ---------------------------------------------------------------- scoring
@@ -979,6 +1371,7 @@ def main():
               file=sys.stderr)
         return 2
     from repro_torch.kernels.flash_attention import kernel as flash_ker
+    from repro_torch.kernels.moe_gating import kernel as gating_ker
     from repro_torch.kernels.nvcc import build_all
     from repro_torch.kernels.ssd_scan import kernel as ssd_ker
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -991,7 +1384,8 @@ def main():
     timings = {}
 
     t0 = time.perf_counter()
-    libraries = (ker.LIBRARY, ssd_ker.LIBRARY, flash_ker.LIBRARY)
+    libraries = (ker.LIBRARY, ssd_ker.LIBRARY, flash_ker.LIBRARY,
+                 gating_ker.LIBRARY)
     build_all(libraries)
     timings["build"] = time.perf_counter() - t0
     for lib in libraries:
@@ -1012,6 +1406,10 @@ def main():
     t0 = time.perf_counter()
     flash_stats = check_flash_kernel(dev)
     timings["flash_attention check"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    gating_stats = check_gating_kernel(dev)
+    timings["gating_topk check"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     golden(dev)
@@ -1044,6 +1442,15 @@ def main():
     t0 = time.perf_counter()
     dense_serve_main_path(dev)
     timings["dense serving main path"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    gap = serve_golden(dev, "granite-moe-1b-a400m", MOE_GOLDEN_LOGIT_ATOL)
+    moe_golden_breakdown(dev, gap)
+    timings["moe serving golden"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    gating_launches = moe_serve_main_path(dev)
+    timings["moe serving main path"] = time.perf_counter() - t0
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in timings.items()))
 
@@ -1059,7 +1466,11 @@ def main():
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:67",
-             launches=flash_launches, **flash_stats)]}))
+             launches=flash_launches, **flash_stats),
+        dict(name="gating_topk", route="cuda",
+             source="src/repro_torch/csrc/moe_gating.cu",
+             replaces="src/repro/kernels/moe_gating/kernel.py:41",
+             launches=gating_launches, library_ms=None, **gating_stats)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

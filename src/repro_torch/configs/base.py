@@ -1,11 +1,12 @@
 """Architecture configuration and registry (copy of `repro.configs.base`).
 
 One `ArchConfig` describes any of the model families `repro` supports.
-The port runs the SSM and dense families so far: the registry resolves
-``mamba2-2.7b`` and ``qwen3-1.7b`` (modules `repro_torch.configs.<id>`,
-each exposing `CONFIG`, the published parameters, and `smoke_config()`);
-every other architecture raises `NotImplementedError` until the
-model-zoo modules it needs are ported (ROADMAP.md, queue 1, item 11).
+The port runs the SSM, dense and MoE families so far: the registry
+resolves ``mamba2-2.7b``, ``qwen3-1.7b`` and ``granite-moe-1b-a400m``
+(modules `repro_torch.configs.<id>`, each exposing `CONFIG`, the
+published parameters, and `smoke_config()`); every other architecture
+raises `NotImplementedError` until the model-zoo modules it needs are
+ported (ROADMAP.md, queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ ARCH_IDS = (
     "mamba2-2.7b",
     "whisper-small",
 )
-PORTED = ("mamba2-2.7b", "qwen3-1.7b")
+PORTED = ("mamba2-2.7b", "qwen3-1.7b", "granite-moe-1b-a400m")
 
 _MODULES = {a: a.replace("-", "_").replace(".", "p") for a in ARCH_IDS}
 

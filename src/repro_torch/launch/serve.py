@@ -1,15 +1,18 @@
 """Serving launcher: the continuous-batching engine over a model.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
-        [--full] [--device cuda|cpu] --requests 12 --slots 4
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch granite-moe-1b-a400m [--full] [--device cuda|cpu] \
+        --requests 12 --slots 4
 
 The flags are the reference launcher's (`repro.launch.serve`) plus
-`--device` (default ``cuda``); `--arch` takes ``mamba2-2.7b`` or
+`--device` (default ``cuda``); `--arch` takes ``granite-moe-1b-a400m``
+(the default, as the reference launcher's), ``mamba2-2.7b`` or
 ``qwen3-1.7b``.  The model runs with ``use_flash_kernel=True``: Mamba2's
-SSD scan goes through its CUDA kernel on the card and through the
-kernel's plain version on the CPU; a dense model's prefill and decode
-use the plain attention, as the reference's do.  Weights are random,
-drawn from a generator seeded with 0 on the device.
+SSD scan and the MoE router's gating go through their CUDA kernels on
+the card and through the kernels' plain versions on the CPU; the
+attention of prefill and decode is the plain one, as the reference's.
+Weights are random, drawn from a generator seeded with 0 on the
+device.
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ from ..serve.engine import Request, ServeEngine
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="mamba2-2.7b")
+    ap.add_argument("--arch", default="granite-moe-1b-a400m")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
     ap.add_argument("--requests", type=int, default=12)

@@ -1,4 +1,5 @@
-"""Model facade (port of `repro.models.api`), the SSM and dense families.
+"""Model facade (port of `repro.models.api`), the SSM, dense and MoE
+families.
 
 `Model(cfg, device)` exposes
     spec / init / n_params
@@ -37,7 +38,8 @@ class Model:
     # --- scoring ---
     def loss(self, params, batch):
         """The training objective's forward (`lm.lm_loss`).  With
-        `use_flash_kernel` it runs the flash kernel, which has no
+        `use_flash_kernel` it runs the flash kernel (dense attention) or
+        the gating kernel (the MoE router), neither of which has a
         gradient: call it under `torch.no_grad()`."""
         return lm.lm_loss(self.cfg, params, batch, interpret=self.interpret)
 
@@ -48,7 +50,8 @@ class Model:
         return logits, caches
 
     def decode_step(self, params, token, pos, caches):
-        return lm.decode_step(self.cfg, params, token, pos, caches)
+        return lm.decode_step(self.cfg, params, token, pos, caches,
+                              interpret=self.interpret)
 
     def init_caches(self, batch: int, max_seq: int, dtype=torch.bfloat16):
         return lm.init_caches(self.cfg, batch, max_seq, dtype, self.device)

@@ -1,14 +1,16 @@
-"""Decoder-only language models, the SSM (Mamba2) and dense families; port
-of `repro.models.lm`.
+"""Decoder-only language models, the SSM (Mamba2), dense and MoE
+families; port of `repro.models.lm`.
 
 One parameter spec and the entry points `forward_hidden`,
 `forward_train` and `lm_loss` (the scoring forward), `prefill` and
 `decode_step` (serving).  The layers' parameters and caches are stacked
 along a leading layer axis, as in the reference, and a Python loop walks
-that axis in place of `lax.scan`.  The port has no training step yet, so
-`remat` is not read.  The MoE, hybrid, VLM and audio families raise
-`NotImplementedError` until their layers are ported (ROADMAP.md, queue 1,
-item 11).
+that axis in place of `lax.scan`; the MoE layers' aux losses are summed
+over it, as the scan's carry does.  Prefill and decode drop the aux loss,
+as the reference does, so there the router does not compute it.  The
+port has no training step yet, so `remat` is not read.  The hybrid, VLM
+and audio families raise `NotImplementedError` until their layers are
+ported (ROADMAP.md, queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from . import attention as attn
+from . import moe as moe_lib
 from . import ssm as ssm_lib
 from .layers import (chunked_ce, embed_spec, embed_tokens, mlp_apply,
                      mlp_spec, rms_norm, unembed)
@@ -28,8 +31,8 @@ def _layer_kinds(cfg: ArchConfig):
     """Per-layer (mixer, ffn) kinds of the stack."""
     if cfg.family == "ssm":
         return [("mamba", "none")]
-    if cfg.family == "dense" and not cfg.is_moe:
-        return [("attn", "mlp")]
+    if cfg.family in ("dense", "moe"):
+        return [("attn", "moe" if cfg.is_moe else "mlp")]
     raise NotImplementedError(
         f"the {cfg.family} family ({cfg.name}) is not ported yet: its "
         "layers come with a later model-zoo slice (ROADMAP.md, queue 1, "
@@ -43,7 +46,7 @@ def block_spec(cfg: ArchConfig, mixer: str, ffn: str) -> Spec:
         ssm_lib.ssm_spec(cfg)
     if ffn != "none":
         s["norm2"] = ParamDef((d,), ("embed",), init="ones")
-        s["ffn"] = mlp_spec(cfg)
+        s["ffn"] = mlp_spec(cfg) if ffn == "mlp" else moe_lib.moe_spec(cfg)
     return s
 
 
@@ -58,7 +61,8 @@ def _apply_block(cfg: ArchConfig, mixer: str, ffn: str, p, x, *,
                  positions=None, cache=None, mode: str = "train", pos=None,
                  interpret: bool = False):
     """Pre-norm mixer block with its residual, then the FFN and its
-    residual (no FFN in the SSM family)."""
+    residual (no FFN in the SSM family).  Returns (x, cache, aux): the
+    MoE layer's aux loss in training mode, else None."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     new_cache = cache
     if mixer == "attn":
@@ -77,10 +81,17 @@ def _apply_block(cfg: ArchConfig, mixer: str, ffn: str, p, x, *,
         y, new_cache = ssm_lib.ssm_apply(cfg, p["mixer"], h, cache,
                                          interpret=interpret)
     x = x + y
+    aux = None
     if ffn != "none":
-        x = x + mlp_apply(cfg, p["ffn"], rms_norm(x, p["norm2"],
-                                                  cfg.norm_eps))
-    return x, new_cache
+        h = rms_norm(x, p["norm2"], cfg.norm_eps)
+        if ffn == "mlp":
+            y = mlp_apply(cfg, p["ffn"], h)
+        else:
+            y, aux = moe_lib.moe_apply(cfg, p["ffn"], h,
+                                       need_aux=mode == "train",
+                                       interpret=interpret)
+        x = x + y
+    return x, new_cache, aux
 
 
 def _layer(tree, i: int):
@@ -104,9 +115,9 @@ def _run_stack(cfg: ArchConfig, blocks_p, x, caches, mode: str, pos=None,
     news = []
     for i in range(cfg.n_layers):
         cache_l = type(caches)(*(t[i] for t in caches))
-        x, new = _apply_block(cfg, mixer, ffn, _layer(blocks_p, i), x,
-                              positions=positions, cache=cache_l, mode=mode,
-                              pos=pos, interpret=interpret)
+        x, new, _ = _apply_block(cfg, mixer, ffn, _layer(blocks_p, i), x,
+                                 positions=positions, cache=cache_l,
+                                 mode=mode, pos=pos, interpret=interpret)
         news.append(new)
     if mixer == "attn":
         return x, caches
@@ -129,15 +140,19 @@ def init_caches(cfg: ArchConfig, batch: int, max_seq: int,
 
 
 def forward_hidden(cfg: ArchConfig, params, tokens, interpret: bool = False):
-    """tokens [B,S] (inputs) → (hidden [B,S,d], aux_loss 0)."""
+    """tokens [B,S] (inputs) → (hidden [B,S,d], aux_loss: the MoE layers'
+    sum, 0 without them)."""
     ((mixer, ffn),) = _layer_kinds(cfg)
     x = embed_tokens(params["embed"], tokens)
     positions = _positions(x)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        x, _ = _apply_block(cfg, mixer, ffn, _layer(params["blocks"], i), x,
-                            positions=positions, mode="train",
-                            interpret=interpret)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        x, _, aux = _apply_block(cfg, mixer, ffn, _layer(params["blocks"], i),
+                                 x, positions=positions, mode="train",
+                                 interpret=interpret)
+        if aux is not None:
+            total = total + aux
+    return x, total
 
 
 def forward_train(cfg: ArchConfig, params, tokens, interpret: bool = False):
@@ -178,12 +193,13 @@ def prefill(cfg: ArchConfig, params, tokens, max_seq: int, caches=None,
     return logits[:, 0], caches, S
 
 
-def decode_step(cfg: ArchConfig, params, token, pos, caches):
+def decode_step(cfg: ArchConfig, params, token, pos, caches,
+                interpret: bool = False):
     """One decode step.  token [B,1] int; `pos` the shared current index
     (not read by the SSM family).  Returns (logits [B,vocab],
     new_caches)."""
     x = embed_tokens(params["embed"], token)
     x, caches = _run_stack(cfg, params["blocks"], x, caches, "decode",
-                           pos=int(pos))
+                           pos=int(pos), interpret=interpret)
     logits = unembed(cfg, params["embed"], x, cfg.norm_eps)
     return logits[:, 0], caches

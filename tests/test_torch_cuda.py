@@ -269,3 +269,95 @@ def test_dense_loss_launches_the_kernel_once_per_layer(cuda):
             params, {"tokens": tokens})
     assert float(metrics["tokens"]) == 2 * 39
     assert abs(float(loss) - float(plain)) <= 1e-5 * abs(float(plain))
+
+
+# ---- moe_gating (the MoE router) ----
+
+def gating_logits(seed, device, N, E, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor((scale * rng.standard_normal((N, E)))
+                           .astype(np.float32), device=device)
+
+
+@pytest.mark.parametrize("N,E,k", [(128, 16, 2), (100, 64, 6), (256, 32, 8),
+                                   (64, 8, 1), (1024, 32, 8), (4, 32, 8),
+                                   (16384, 32, 8), (77, 256, 8),
+                                   (300, 127, 3)])
+def test_gating_kernel_equals_plain_version(cuda, N, E, k):
+    """Same float32 operations in the same order: gates and ids bitwise."""
+    from repro_torch.kernels.moe_gating import kernel as gk
+    from repro_torch.kernels.moe_gating import ops as gops
+    from repro_torch.kernels.moe_gating.ref import reference_gating
+    x = gating_logits(N + E, cuda, N, E, scale=2.0)
+    before = gk.gating_topk.launches
+    gate, idx = gops.fused_gating(x, k)
+    want_gate, want_idx = reference_gating(x, k)
+    torch.cuda.synchronize()
+    assert gk.gating_topk.launches == before + 1
+    assert gate.shape == (N, k) and idx.dtype == torch.int32
+    assert torch.equal(idx, want_idx)
+    assert torch.equal(gate, want_gate)
+
+
+def test_gating_kernel_ties_go_to_the_lowest_index(cuda):
+    from repro_torch.kernels.moe_gating import ops as gops
+    x = torch.zeros(3, 32, device=cuda)
+    x[1] = 1.5
+    x[2, [20, 4, 11]] = 2.0
+    gate, idx = gops.fused_gating(x, 8)
+    assert idx[0].tolist() == idx[1].tolist() == list(range(8))
+    assert idx[2].tolist() == [4, 11, 20, 0, 1, 2, 3, 5]
+    assert torch.allclose(gate[0], torch.full((8,), 0.125, device=cuda))
+
+
+def test_gating_kernel_refuses_what_it_does_not_take(cuda):
+    """Refusals raise, and interpret=True takes the plain version; none
+    of them launches the kernel."""
+    from repro_torch.kernels.moe_gating import kernel as gk
+    from repro_torch.kernels.moe_gating import ops as gops
+    from repro_torch.kernels.moe_gating.ref import reference_gating
+    x = gating_logits(0, cuda, 64, 32)
+    before = gk.gating_topk.launches
+    with pytest.raises(ValueError, match="not contiguous"):
+        gops.fused_gating(x.t(), 8)
+    with pytest.raises(ValueError, match="top_k 9"):
+        gops.fused_gating(x, 9)
+    with pytest.raises(TypeError, match="float64"):
+        gops.fused_gating(x.double(), 8)
+    gate, idx = gops.fused_gating(x, 8, interpret=True)   # the plain version
+    want_gate, want_idx = reference_gating(x, 8)
+    assert torch.equal(gate, want_gate) and torch.equal(idx, want_idx)
+    with pytest.raises(RuntimeError, match="no backward"):
+        gops.fused_gating(x.requires_grad_(), 8)
+    assert gk.gating_topk.launches == before
+
+
+def test_moe_engine_launches_the_gating_kernel_per_layer_and_step(cuda):
+    """Every prefill and decode step launches the kernel once per layer,
+    and the tokens equal the plain router's on the card."""
+    import dataclasses
+    from repro_torch.configs.granite_moe_1b_a400m import smoke_config
+    from repro_torch.kernels.moe_gating import kernel as gk
+    from repro_torch.models.api import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    outputs = []
+    for flag in (True, False):
+        cfg = dataclasses.replace(smoke_config(), use_flash_kernel=flag)
+        model = build_model(cfg, cuda)
+        params = model.init(torch.Generator(device=cuda).manual_seed(0),
+                            torch.float32)
+        engine = ServeEngine(model, params, batch_slots=2, max_seq=48,
+                             prompt_len=8)
+        rng = np.random.default_rng(0)
+        reqs = [Request(rid, rng.integers(0, cfg.vocab, size=8),
+                        max_new_tokens=8) for rid in range(5)]
+        for r in reqs:
+            engine.submit(r)
+        before = gk.gating_topk.launches
+        engine.run_until_drained()
+        torch.cuda.synchronize()
+        steps = engine.stats["prefills"] + engine.stats["decode_steps"]
+        assert gk.gating_topk.launches - before == \
+            (cfg.n_layers * steps if flag else 0)
+        outputs.append([r.output for r in reqs])
+    assert outputs[0] == outputs[1]
