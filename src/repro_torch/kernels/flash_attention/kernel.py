@@ -2,19 +2,23 @@
 
 Replaces the Pallas TPU kernel `flash_attention_bhsd`
 (src/repro/kernels/flash_attention/kernel.py:67, body `_flash_kernel`).
-The source is `csrc/flash_attention.cu`:
+The source is `csrc/flash_attention.cu`, one kernel per type:
 
-* one block of 256 threads per (64 query rows, head, batch), the q-tile
-  staged in shared memory, the key tiles of `block_k` walked in order up
-  to the causal diagonal with the running max, sum and output rows in
-  registers;
-* the online-softmax update runs once per `block_k` keys, as in the TPU
-  kernel, so it differs from `ref.reference_flash_bhsd` only in the order
-  of the sums inside a tile;
-* bound by operations (float32 on the CUDA cores), not bytes.
+* bfloat16 (the scoring path): wgmma on the tensor cores with float32
+  sums; per (64 query rows, K/V head, batch) a block whose warpgroups take
+  two query heads of the GQA group, K/V loaded once for both by TMA in
+  tiles of `ref.KEY_TILE` keys through a 2-stage mbarrier ring, whatever
+  `block_k` is.  It rounds p to bf16 before P·V, which the reference
+  kernel does not: `ref.rounded_flash_bhsd` is its plain version.
+* float32: the CUDA cores, the online-softmax update once per `block_k`
+  keys as in the TPU kernel, so it differs from `ref.reference_flash_bhsd`
+  only in the order of the sums inside a tile.
 
-There is no backward kernel: the TPU kernel has none.
-`flash_attention_bhsd.launches` counts launches.
+Both are bound by operations, not bytes.  The TMA tensor maps are encoded
+in the library's C launch function (`cuTensorMapEncodeTiled`, fetched
+through `cudaGetDriverEntryPoint`: no `-lcuda`).  There is no backward
+kernel: the TPU kernel has none.  `flash_attention_bhsd.launches` counts
+launches.
 """
 from __future__ import annotations
 
@@ -43,7 +47,8 @@ LIBRARY = KernelLibrary("flash_attention", "flash_attention.cu", (), _bind)
 def check_shapes(hd: int, block_k: int, dtype) -> None:
     """Raise for a head dim, block or type the kernel does not take; there
     is no fallback to the plain version.  Shared memory is fixed by hd
-    (~99 KB at hd 128, two blocks per SM), so every head dim taken fits."""
+    (at hd 128: float32 ~99 KB, two blocks per SM; bf16 ~161 KB, one), so
+    every head dim taken fits."""
     if dtype not in _DTYPES:
         raise TypeError(f"flash_attention_bhsd: q, k and v are {dtype}; the "
                         "kernel takes float32 or bfloat16")

@@ -5,9 +5,12 @@ It follows the reference wrapper step by step: swap BSHD to BHSD, pick
 the blocks `min(block, max(8, next_pow2(S)))`, pad both sequences to
 block multiples, pass the true key count as `kv_len`, and cut the padded
 query rows off.  Tensors on a CUDA device launch the kernel, or raise if
-it cannot be built or launched; tensors on the CPU take the plain version
-(`ref.reference_flash_bhsd`), as does `interpret=True` on whatever device
-the tensors are on.
+it cannot be built or launched; tensors on the CPU take the reference's
+function (`ref.reference_flash_bhsd`), as does `interpret=True` on
+whatever device the tensors are on.  The bf16 kernel also rounds p to
+bf16 before P·V, which the reference does not: its plain version with
+that rounding is `ref.rounded_flash_bhsd`, which the checks on the card
+use and no path calls.
 
 There is no gradient: the reference kernel has no `custom_vjp`, and
 `jax.grad` through it fails.  A launch through `ctypes` is invisible to

@@ -7,6 +7,13 @@ their contribution and cut the padding off.  Tensors on a CUDA device
 launch the kernel, or raise if it cannot be built or launched; tensors
 on the CPU take the plain version (`ref.reference_intra_chunk`), as does
 `interpret=True` on whatever device the tensors are on.
+
+There is no gradient: the reference kernel has no `custom_vjp`, and
+`jax.grad` through it fails.  A launch through `ctypes` is invisible to
+autograd, so a loss through it would get silently wrong gradients; the
+op raises instead, on the card and on the CPU alike, whenever grad mode
+is on and an input requires grad (as `flash_attention` and
+`fused_gating` do).
 """
 from __future__ import annotations
 
@@ -20,6 +27,14 @@ from .ref import reference_intra_chunk
 def ssd_scan(xdt, log_a, b, c, chunk: int = 128, interpret: bool = False):
     """xdt [B,S,nh,hd]; log_a [B,S,nh] float32; b, c [B,S,st] →
     y [B,S,nh,hd] float32."""
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (xdt, log_a, b, c)):
+        raise RuntimeError(
+            "ssd_scan has no backward: the reference kernel "
+            "(repro.kernels.ssd_scan) defines no custom_vjp and jax.grad "
+            "through it fails, so the port adds none; call it under "
+            "torch.no_grad() or torch.inference_mode(), or set "
+            "use_flash_kernel=False to differentiate")
     B, S, nh, hd = xdt.shape
     st = b.shape[-1]
     Q = min(chunk, S)

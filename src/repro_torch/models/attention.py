@@ -182,7 +182,10 @@ def _write(cache: KVCache, k, v, start: int) -> KVCache:
     """Write k, v [B,S,Hk,hd] at sequence index `start`, in place (the
     reference's `dynamic_update_slice` makes a new array; the port writes
     into the caller's tensors, which may be views of the stacked
-    caches)."""
+    caches).  Like `dynamic_update_slice`, `start` is clamped so that the
+    update fits: a decode step at or past the cache's end overwrites its
+    last row."""
+    start = max(0, min(start, cache.k.shape[1] - k.shape[1]))
     cache.k[:, start:start + k.shape[1]] = k.to(cache.k.dtype)
     cache.v[:, start:start + v.shape[1]] = v.to(cache.v.dtype)
     return cache

@@ -50,9 +50,17 @@ def mlp_spec(cfg: ArchConfig) -> Spec:
     }
 
 
+def silu(a):
+    """`jax.nn.silu` as XLA computes it on the CPU, eagerly and under
+    `jit` alike: a · (1 / (1 + exp(−a))), each step rounded in a's type.
+    `F.silu` rounds once; in bfloat16 the two differ by an ulp in many
+    elements.  Both SwiGLUs (`mlp_apply`, the MoE experts) take it."""
+    return a * (1.0 / (1.0 + torch.exp(-a)))
+
+
 def mlp_apply(cfg: ArchConfig, p, x):
     if cfg.act == "swiglu":
-        h = F.silu(x @ p["wi0"]) * (x @ p["wi1"])
+        h = silu(x @ p["wi0"]) * (x @ p["wi1"])
     elif cfg.act == "sq_relu":
         h = torch.square(F.relu(x @ p["wi"]))
     else:

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from ..configs.base import ArchConfig
 from ..kernels.moe_gating.ops import fused_gating
 from ..kernels.moe_gating.ref import reference_gating
+from .layers import silu
 from .params import ParamDef, Spec
 
 
@@ -92,14 +93,6 @@ def expert_counts(onehot, C: int):
         return torch.cumsum(onehot.transpose(1, 2).contiguous(),
                             dim=-1).transpose(1, 2)
     return scan_sum(onehot, dim=1)
-
-
-def silu(a):
-    """`jax.nn.silu` as XLA computes it on the CPU, eagerly and under
-    `jit` alike: a · (1 / (1 + exp(−a))), each step rounded in a's type.
-    `F.silu` rounds once; in bfloat16 the two differ by an ulp in many
-    elements."""
-    return a * (1.0 / (1.0 + torch.exp(-a)))
 
 
 def router_topk(cfg: ArchConfig, p, x, need_aux: bool = True,

@@ -171,6 +171,7 @@ def test_ssd_kernel_shared_memory_formula(cuda):
 
 FLASH_RTOL = 1e-5      # float32: of the plain version's largest |value|
 BF16_ULP = 2.0 ** -7   # bf16: one ulp of each value, plus the float32 term
+P_ROUND = 2.0 ** -8    # bf16: p rounded to bf16, of max |v| (vs reference)
 
 
 def flash_inputs(seed, device, B, S, H, Hk, hd, dtype):
@@ -180,18 +181,38 @@ def flash_inputs(seed, device, B, S, H, Hk, hd, dtype):
     return t(B, S, H, hd), t(B, S, Hk, hd), t(B, S, Hk, hd)
 
 
-def assert_flash_close(got, want):
-    """float32: max |got − want| ≤ 1e-5·max |want|; bf16: every element
-    within one bf16 ulp of `want` plus that float32 term."""
-    dtype = want.dtype
+def within(got, want, extra=0.0):
+    """|got − want| ≤ BF16_ULP·|want| + FLASH_RTOL·max |want| + extra."""
     got, want = got.float(), want.float()
-    scale = float(want.abs().max())
-    err = (got - want).abs()
-    if dtype == torch.float32:
-        bound = FLASH_RTOL * scale
-    else:
-        bound = BF16_ULP * want.abs() + FLASH_RTOL * scale
-    assert bool((err <= bound).all()), float((err - bound).max())
+    bound = BF16_ULP * want.abs() + FLASH_RTOL * float(want.abs().max()) + \
+        extra
+    assert bool(((got - want).abs() <= bound).all()), \
+        float(((got - want).abs() - bound).max())
+
+
+def assert_flash_close(got, q, k, v, causal, **blocks):
+    """float32: max |got − plain| ≤ 1e-5·max |plain| (the plain version,
+    the reference's function, via interpret=True).  bf16: the kernel
+    rounds p to bf16, so within one bf16 ulp plus the float32 term plus
+    the flip slack of its own plain version (`rounded_flash_bhsd`), and
+    within 2⁻⁸·max_head |v| more of the reference's function
+    (chip_smoke.py derives both)."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import rounded_flash_bhsd
+    want = fops.flash_attention(q, k, v, causal=causal, interpret=True,
+                                **blocks)
+    if q.dtype == torch.float32:
+        err = float((got - want).abs().max())
+        assert err <= FLASH_RTOL * float(want.abs().max()), err
+        return
+    bhsd = lambda x: x.transpose(1, 2).contiguous()
+    plain, slack = rounded_flash_bhsd(bhsd(q), bhsd(k), bhsd(v),
+                                      causal=causal, kv_len=q.shape[1],
+                                      with_slack=True)
+    within(bhsd(got), plain, slack)
+    v_max = bhsd(v).float().abs().amax(dim=(2, 3)).repeat_interleave(
+        q.shape[2] // k.shape[2], dim=1)[..., None, None]
+    within(bhsd(got), bhsd(want), P_ROUND * v_max)
 
 
 @pytest.mark.parametrize("B,S,H,Hk,hd,causal,dtype", [
@@ -203,6 +224,11 @@ def assert_flash_close(got, want):
     (2, 300, 4, 4, 128, False, torch.float32),
     (1, 8, 4, 2, 16, True, torch.float32),        # the smoke prefill's block
     (1, 1000, 16, 8, 128, True, torch.bfloat16),
+    (1, 300, 8, 2, 128, True, torch.bfloat16),    # G 4: two blocks a group
+    (1, 4097, 4, 2, 128, True, torch.bfloat16),   # S 4097, padded to 4224
+    (2, 77, 4, 1, 64, False, torch.bfloat16),     # kv_len 77 < Skv 128
+    (1, 96, 6, 2, 32, True, torch.bfloat16),      # G 3: one head a block
+    (2, 100, 4, 4, 16, False, torch.bfloat16),    # G 1, hd 16
 ])
 def test_flash_kernel_matches_plain_version(cuda, B, S, H, Hk, hd, causal,
                                             dtype):
@@ -211,25 +237,26 @@ def test_flash_kernel_matches_plain_version(cuda, B, S, H, Hk, hd, causal,
     q, k, v = flash_inputs(S + hd, cuda, B, S, H, Hk, hd, dtype)
     before = fk.flash_attention_bhsd.launches
     got = fops.flash_attention(q, k, v, causal=causal)
-    want = fops.flash_attention(q, k, v, causal=causal, interpret=True)
     torch.cuda.synchronize()
     assert fk.flash_attention_bhsd.launches == before + 1
     assert got.dtype == dtype and got.shape == (B, S, H, hd)
     assert bool(torch.isfinite(got).all())
-    assert_flash_close(got, want)
+    assert_flash_close(got, q, k, v, causal)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("block", [8, 16, 32, 64])
-def test_flash_kernel_small_blocks(cuda, block):
-    """The online-softmax update per `block` keys, as the plain version."""
+def test_flash_kernel_small_blocks(cuda, block, dtype):
+    """float32: the online-softmax update per `block` keys, as the plain
+    version.  bf16: tiles of 128 keys whatever the block, which only sets
+    the padding."""
     from repro_torch.kernels.flash_attention import ops as fops
-    q, k, v = flash_inputs(block, cuda, 2, 77, 4, 2, 64, torch.float32)
+    q, k, v = flash_inputs(block, cuda, 2, 77, 4, 2, 64, dtype)
     for causal in (True, False):
         assert_flash_close(
             fops.flash_attention(q, k, v, causal=causal, block_q=block,
                                  block_k=block),
-            fops.flash_attention(q, k, v, causal=causal, block_q=block,
-                                 block_k=block, interpret=True))
+            q, k, v, causal, block_q=block, block_k=block)
 
 
 def test_flash_kernel_rejects_an_unsupported_head_dim(cuda):

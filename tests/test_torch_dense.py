@@ -128,6 +128,41 @@ def test_mlp_apply_matches_repro(act):
           r_layers.mlp_apply(rc, p, jnp.asarray(x)))
 
 
+def test_mlp_apply_bf16_rounds_silu_as_repro():
+    """bf16 SwiGLU at x [2, 256, 64] and the smoke widths (d_ff 128), on
+    random bf16 weights: the SiLU rounds at each step of `jax.nn.silu`, as
+    the reference's does on the CPU (`F.silu`, rounding once, moves more
+    than half of the outputs, by up to one bf16 ulp).
+
+    What may still differ is the three products' float32 summation order:
+    where a product's float32 sum lands beside a bf16 rounding midpoint,
+    the two sides round it one ulp apart.  So at most 1% of the outputs
+    differ at all, and each within one ulp of its own rounding plus one
+    ulp of every hidden element it sums: |Δy| ≤ 2⁻⁷·|y| + 2⁻⁷·(|h|·|wo|),
+    h the reference's hidden activations (one bf16 ulp ≤ 2⁻⁷ of a value).
+    """
+    cfg, rc = smoke_config(), r_smoke()
+    rng = np.random.default_rng(7)
+    p = {k: jnp.asarray(0.2 * rng.standard_normal(v.shape)).astype(
+        jnp.bfloat16) for k, v in t_layers.mlp_spec(cfg).items()}
+    x = jnp.asarray(activations(8, 2, 256, 64)).astype(jnp.bfloat16)
+    want = np.asarray(r_layers.mlp_apply(rc, p, x), np.float32)
+    tp = {k: torch.from_numpy(np.asarray(v, np.float32)).to(torch.bfloat16)
+          for k, v in p.items()}
+    tx = torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+    got = t_layers.mlp_apply(cfg, tp, tx)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 256, 64)
+    got = got.float().numpy()
+    h = np.asarray(jax.nn.silu(x @ p["wi0"]) * (x @ p["wi1"]), np.float32)
+    bound = 2.0 ** -7 * (np.abs(want) + np.abs(h) @ np.abs(
+        np.asarray(p["wo"], np.float32)))
+    assert (got != want).sum() <= 0.01 * want.size
+    assert np.all(np.abs(got - want) <= bound)
+    once = (torch.nn.functional.silu(tx @ tp["wi0"]) * (tx @ tp["wi1"])) \
+        @ tp["wo"]
+    assert (once.float().numpy() != want).sum() > 0.5 * want.size
+
+
 @pytest.mark.parametrize("S,chunk", [(24, 512), (24, 7), (10, 4)])
 def test_chunked_ce_matches_repro(ref_params, S, chunk):
     emb = layer({"e": ref_params["embed"]}, slice(None))["e"]
@@ -183,6 +218,30 @@ def test_attention_matches_repro(ref_params, repro_flash_interpret, flash):
                            torch.from_numpy(pos))
     close(got, r_attn.attention(rcfg(flash), p, jnp.asarray(x),
                                 jnp.asarray(pos)))
+
+
+@pytest.mark.parametrize("offset", [-1, 0, 3])
+def test_decode_attention_at_and_past_the_cache_end_matches_repro(
+        ref_params, offset):
+    """A step at pos = max_seq + offset (cache of 8): at or past the end,
+    the reference's `dynamic_update_slice` clamps the write onto row
+    max_seq − 1, and so does the port's `_write`; y and both caches at
+    float32."""
+    max_seq, pos = 8, 8 + offset
+    p = layer(ref_params["blocks"]["mixer"], 0)
+    x = activations(5, 2, 1, 64)
+    k0, v0 = activations(6, 2, max_seq, 2, 16), activations(7, 2, max_seq,
+                                                            2, 16)
+    y_r, c_r = r_attn.decode_attention(
+        rcfg(False), p, jnp.asarray(x), pos,
+        r_attn.KVCache(jnp.asarray(k0), jnp.asarray(v0)))
+    y_t, c_t = t_attn.decode_attention(
+        smoke_config(), tensors(p), torch.from_numpy(x), pos,
+        t_attn.KVCache(torch.from_numpy(k0.copy()),
+                       torch.from_numpy(v0.copy())))
+    close(y_t, y_r)
+    close(c_t.k, c_r.k)
+    close(c_t.v, c_r.v)
 
 
 # ---- the scoring forward ----
@@ -287,10 +346,10 @@ def test_prefill_and_decode_match_repro(ref_model, ref_params):
         close_bf16(c_t.v, c_r.v)
 
 
-def serve(engine, req_cls):
+def serve(engine, req_cls, n=5, prompt=8, new=8):
     rng = np.random.default_rng(0)
-    reqs = [req_cls(rid, rng.integers(0, 512, size=8), max_new_tokens=8)
-            for rid in range(5)]
+    reqs = [req_cls(rid, rng.integers(0, 512, size=prompt),
+                    max_new_tokens=new) for rid in range(n)]
     for r in reqs:
         engine.submit(r)
     steps = engine.run_until_drained()
@@ -307,6 +366,23 @@ def test_serve_engine_matches_repro(ref_model, ref_params):
     assert serve(engine, t_engine.Request) == r_out
     assert engine.stats == r_engine.stats
     assert engine.stats["prefills"] == 5
+
+
+def test_serve_engine_at_prompt_len_max_seq_matches_repro(ref_model,
+                                                         ref_params):
+    """Prompts fill the cache (prompt_len == max_seq 16), so every decode
+    step writes at or past its end: `dynamic_update_slice` clamps the
+    write onto the last row, and the port's in-place write clamps alike
+    (it wrote nothing before)."""
+    kw = dict(batch_slots=2, max_seq=16, prompt_len=16)
+    r_engine = RServeEngine(ref_model, ref_params, **kw)
+    r_out = serve(r_engine, RRequest, n=3, prompt=16, new=2)
+    model, params = port(ref_params)
+    engine = t_engine.ServeEngine(model, params, **kw)
+    out = serve(engine, t_engine.Request, n=3, prompt=16, new=2)
+    assert out == r_out
+    assert out[1] == [[224, 191], [341, 361], [182, 333]]
+    assert engine.stats == r_engine.stats
 
 
 def test_engine_throughput_tokens_per_s(monkeypatch, ref_model, ref_params):

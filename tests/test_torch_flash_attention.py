@@ -18,6 +18,19 @@ the default 128.  Tolerances:
   the two sides differ by more than a bf16 ulp of the element from the
   order of the sums alone (one element of (2, 128, 4, 2, 32), block 32,
   does against the Pallas kernel).
+
+The bf16 CUDA kernel rounds p to bf16 before P·V, which the reference
+does not; its plain version `ref.rounded_flash_bhsd` does the same, and
+is held here two ways:
+
+* against a float64 numpy emulation of that rounding: within one bf16
+  ulp plus the float32 term plus the plain version's flip slack (where
+  float32 and float64 could round a p to neighbouring bf16 values, one
+  bf16 ulp of that p times |v|, over l);
+* against the reference's function (the Pallas kernel in interpret
+  mode) within the derived bound |a − b| ≤ 2⁻⁷·|b| + 2⁻⁸·max_head |v| +
+  1e-5·max |b|: p̃ = p(1 + δ), |δ| ≤ 2⁻⁸, moves Σ p̃ v / l by at most
+  2⁻⁸·max |v|, and both outputs round once to bf16.
 """
 import numpy as np
 import pytest
@@ -26,6 +39,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from repro.kernels.flash_attention.kernel import flash_attention_bhsd as r_bhsd  # noqa: E402
 from repro.kernels.flash_attention.ops import flash_attention as r_flash  # noqa: E402
 from repro.kernels.flash_attention.ref import reference_attention as r_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel, ops, ref  # noqa: E402
@@ -161,6 +175,87 @@ def test_gradient_guard_matches_the_reference():
     with pytest.raises(AssertionError):
         jax.grad(lambda x: r_flash(x, jk, jv, block_q=16, block_k=16,
                                    interpret=True).sum())(jq)
+
+
+def bf16_inputs(seed, B, S, H, Hk, hd, pad=0):
+    """q [B,H,S,hd], k and v [B,Hk,S + pad,hd] in BHSD, rounded to bf16
+    (as float32 numpy); the `pad` keys past S hold 7.0."""
+    q, k, v = (np.ascontiguousarray(np.swapaxes(a, 1, 2))
+               for a in inputs(seed, B, S, H, Hk, hd))
+    widen = lambda a: np.concatenate(
+        [a, np.full(a.shape[:2] + (pad, hd), 7.0, np.float32)], 2)
+    rnd = lambda a: np.asarray(jnp.asarray(a).astype(jnp.bfloat16),
+                               np.float32)
+    return rnd(q), rnd(widen(k)), rnd(widen(v))
+
+
+def emulate_rounded(q, k, v, causal, kv_len):
+    """The bf16 kernel's function in float64 numpy: key tiles of
+    `ref.KEY_TILE`, scores times hd^-1/2·log2 e, exp2, p rounded to bf16
+    before P·V, l summing the unrounded p; the output in float64."""
+    B, H, Sq, hd = q.shape
+    G = H // k.shape[1]
+    kk, vv = (np.repeat(a.astype(np.float64), G, axis=1) for a in (k, v))
+    c = ref.score_scale(hd)
+    rows = np.arange(Sq)[:, None]
+    m = np.full((B, H, Sq), -1e30)
+    l = np.zeros((B, H, Sq))
+    acc = np.zeros((B, H, Sq, hd))
+    for k0 in range(0, kv_len, ref.KEY_TILE):
+        kt, vt = kk[:, :, k0:k0 + ref.KEY_TILE], vv[:, :, k0:k0 + ref.KEY_TILE]
+        s = q.astype(np.float64) @ np.swapaxes(kt, -1, -2) * c
+        cols = k0 + np.arange(kt.shape[2])[None, :]
+        mask = (cols < kv_len) & ((rows >= cols) if causal else True)
+        s = np.where(mask, s, -1e30)
+        m_new = np.maximum(m, s.max(-1))
+        corr = np.exp2(m - m_new)
+        p = np.exp2(s - m_new[..., None])
+        p16 = np.asarray(jnp.asarray(p.astype(np.float32)).astype(
+            jnp.bfloat16), np.float64)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + p16 @ vt
+        m = m_new
+    return acc / np.maximum(l, 1e-30)[..., None]
+
+
+@pytest.mark.parametrize("pad", [0, 16])
+@pytest.mark.parametrize("B,S,H,Hk,hd,causal", SHAPES)
+def test_rounded_plain_version_matches_a_float64_emulation(B, S, H, Hk, hd,
+                                                           causal, pad):
+    q, k, v = bf16_inputs(S + pad, B, S, H, Hk, hd, pad)
+    t = lambda a: torch.from_numpy(a).to(torch.bfloat16)
+    got, slack = ref.rounded_flash_bhsd(t(q), t(k), t(v), causal=causal,
+                                        kv_len=S, with_slack=True)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, H, S, hd)
+    want = emulate_rounded(q, k, v, causal, S).astype(np.float32)
+    want = np.asarray(jnp.asarray(want).astype(jnp.bfloat16), np.float32)
+    bound = 2.0 ** -7 * np.abs(want) + F32_ATOL * np.abs(want).max() + \
+        slack.numpy()
+    assert np.all(np.abs(got.float().numpy() - want) <= bound)
+
+
+@pytest.mark.parametrize("pad", [0, 16])
+@pytest.mark.parametrize("B,S,H,Hk,hd,causal", SHAPES)
+def test_rounded_plain_version_within_the_derived_bound_of_repro(
+        B, S, H, Hk, hd, causal, pad):
+    """Keys past `kv_len` = S (pad > 0) are masked on both sides."""
+    q, k, v = bf16_inputs(S + pad + 1, B, S, H, Hk, hd, pad)
+    t = lambda a: torch.from_numpy(a).to(torch.bfloat16)
+    got = ref.rounded_flash_bhsd(t(q), t(k), t(v), causal=causal, kv_len=S)
+    j = lambda a: jnp.asarray(a).astype(jnp.bfloat16)
+    if pad:
+        want = r_bhsd(j(q), j(k), j(v), causal=causal, kv_len=S,
+                      block_q=16, block_k=16, interpret=True)
+    else:
+        sw = lambda a: jnp.swapaxes(a, 1, 2)
+        want = sw(r_flash(sw(j(q)), sw(j(k)), sw(j(v)), causal=causal,
+                          interpret=True))
+    want = np.asarray(want, np.float32)
+    v_max = np.repeat(np.abs(v[:, :, :S]).max(axis=(2, 3)), H // Hk,
+                      axis=1)[..., None, None]
+    bound = 2.0 ** -7 * np.abs(want) + 2.0 ** -8 * v_max + \
+        F32_ATOL * np.abs(want).max()
+    assert np.all(np.abs(got.float().numpy() - want) <= bound)
 
 
 def test_kernel_refuses_what_it_does_not_take():

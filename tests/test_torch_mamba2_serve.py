@@ -145,6 +145,21 @@ def test_bfloat16_prefill_matches_repro(ref_model):
         BF16_STATE_RTOL * np.linalg.norm(h_r)
 
 
+def test_loss_refuses_gradients_through_the_kernel(ref_params_f32):
+    """With use_flash_kernel=True the mixer's scan is `ssd_scan`, which
+    has no backward (nor has the reference's): the loss raises under grad
+    and runs under no_grad."""
+    model, params = port(True, ref_params_f32)
+    params["blocks"]["mixer"]["in_x"].requires_grad_()
+    batch = {"tokens": torch.from_numpy(
+        np.random.default_rng(0).integers(0, 512, (1, 12)))}
+    with pytest.raises(RuntimeError, match="no backward"):
+        model.loss(params, batch)
+    with torch.no_grad():
+        loss, _ = model.loss(params, batch)
+    assert torch.isfinite(loss)
+
+
 def serve(engine, req_cls, vocab):
     rng = np.random.default_rng(0)
     reqs = [req_cls(rid, rng.integers(0, vocab, size=8), max_new_tokens=8)

@@ -318,10 +318,10 @@ def test_prefill_and_decode_match_repro(ref_model, ref_params):
         close_bf16(c_t.v, c_r.v)
 
 
-def serve(engine, req_cls):
+def serve(engine, req_cls, n=5, prompt=8, new=8):
     rng = np.random.default_rng(0)
-    reqs = [req_cls(rid, rng.integers(0, 512, size=8), max_new_tokens=8)
-            for rid in range(5)]
+    reqs = [req_cls(rid, rng.integers(0, 512, size=prompt),
+                    max_new_tokens=new) for rid in range(n)]
     for r in reqs:
         engine.submit(r)
     steps = engine.run_until_drained()
@@ -339,6 +339,22 @@ def test_serve_engine_matches_repro(ref_model, ref_params, flash):
     assert serve(engine, t_engine.Request) == r_out
     assert engine.stats == r_engine.stats
     assert engine.stats["prefills"] == 5
+
+
+@pytest.mark.parametrize("flash", [True, False])
+def test_serve_engine_at_prompt_len_max_seq_matches_repro(ref_model,
+                                                         ref_params, flash):
+    """Prompts fill the cache (prompt_len == max_seq 16), so every decode
+    step writes at or past its end, where the reference's
+    `dynamic_update_slice` clamps the write onto the last row; the port's
+    attention clamps alike (it wrote nothing before)."""
+    kw = dict(batch_slots=2, max_seq=16, prompt_len=16)
+    r_engine = RServeEngine(ref_model, ref_params, **kw)
+    r_out = serve(r_engine, RRequest, n=3, prompt=16, new=2)
+    model, params = port(ref_params, flash)
+    engine = t_engine.ServeEngine(model, params, **kw)
+    assert serve(engine, t_engine.Request, n=3, prompt=16, new=2) == r_out
+    assert engine.stats == r_engine.stats
 
 
 @pytest.mark.parametrize("flash,interpret", [(True, False), (False, False),

@@ -20,6 +20,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 from repro.kernels.ssd_scan import kernel as r_kernel  # noqa: E402
 from repro.kernels.ssd_scan import ops as r_ops  # noqa: E402
 from repro.kernels.ssd_scan import ref as r_ref  # noqa: E402
@@ -125,6 +126,24 @@ def test_kernel_takes_the_model_shapes(Q, hd, st, dtype):
 def test_kernel_rejects_unsupported_shapes(Q, hd, st, dtype, match):
     with pytest.raises((ValueError, TypeError), match=match):
         t_kernel.check_shapes(Q, hd, st, dtype)
+
+
+def test_gradient_guard_matches_the_reference():
+    """`jax.grad` through the reference op fails (its Pallas kernel has no
+    VJP); the port's op raises under grad, on every device, instead of
+    differentiating its plain version; under no_grad it runs."""
+    xdt, log_a, b, c = make_inputs(11, 1, 32, 2, 8, 16)
+    with pytest.raises(ValueError):
+        jax.grad(lambda x: r_ops.ssd_scan(x, log_a, b, c, chunk=16,
+                                          interpret=True).sum())(xdt)
+    tx, tl, tb, tc = as_torch((xdt, log_a, b, c))
+    tx.requires_grad_()
+    for interpret in (False, True):
+        with pytest.raises(RuntimeError, match="no backward"):
+            t_ops.ssd_scan(tx, tl, tb, tc, chunk=16, interpret=interpret)
+    with torch.no_grad():
+        assert t_ops.ssd_scan(tx, tl, tb, tc, chunk=16).shape == \
+            (1, 32, 2, 8)
 
 
 def test_kernel_refuses_cpu_tensors():
