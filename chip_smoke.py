@@ -18,7 +18,10 @@ read just after:
   (float32), then the full-width model (64 layers, d_model 2560, bf16
   weights drawn from a generator seeded with 0) behind `ServeEngine`
   with 4 slots, 8 requests of 1024 prompt tokens and 32 new tokens each;
-  it launches `ssd_scan` once per layer per prefill;
+  it launches `ssd_scan` once per layer per prefill, on the tensor cores
+  (bf16); its logits and tokens are held to the interpret=True run's
+  within the reach of the same run with the kernel's plain version
+  (SERVE_GAP_FACTOR);
 * Qwen3-1.7B scoring: `smoke_config()` scored on the CPU and on the card
   (float32), then `Model.loss` at full width (28 layers, d_model 2048,
   bf16 weights drawn from a generator seeded with 0) on 4 × 4096 tokens
@@ -61,16 +64,64 @@ SERVE_REQUESTS, SERVE_NEW = 8, 32
 # the smoke golden: tests/test_launchers.py's serving traffic
 GOLDEN_SERVE = dict(batch_slots=2, prompt_len=8, max_seq=48)
 GOLDEN_REQUESTS, GOLDEN_NEW = 5, 8
-# ssd_scan check: kernel vs its plain version.  Both run the same float32
-# operations in the same order, so they are expected to agree bitwise; the
-# check allows 1e-5 of each output's largest magnitude.
+# ssd_scan check, float32 and the CUDA-core kernel: kernel vs its plain
+# version.  Both run the same float32 operations in the same order, so they
+# are expected to agree bitwise; the check allows 1e-5 of each output's
+# largest magnitude.
 SSD_RTOL = 1e-5
+# ssd_scan, the bf16 tensor-core kernel (`ref.split_coefficients`).  Each
+# output element is held within coefficient × T, where T sums the
+# magnitudes of its terms (`ref.intra_chunk_majorants`): for y,
+# Ty = Σ_{k≤q} A_qk·D_qk·|x_k| with A_qk = Σ_j |C_qj||B_kj| and D the decay;
+# for h, Th = Σ_k tail_k·|x_k|·|B_k|.  Derivation, with u = SSD_SUM_U per
+# float32 addition and γ(n) = n·u / (1 − n·u):
+# * a float32 sum of n terms errs by at most γ(n)·Σ|terms|.  u is 4× float32's
+#   2⁻²⁴: the tensor cores align each k16 step's 16 products and the
+#   accumulator to the largest and truncate, losing under one ulp (2⁻²³) of
+#   the largest per term, which over K/16 steps stays below K·2⁻²²·Σ|terms|;
+# * the split: hi = bf16(v), lo = bf16(v − hi) (v − hi exact), so hi + lo =
+#   v(1 + δ) with |δ| <= 2⁻⁸·2⁻⁸ = SSD_SPLIT, and |hi| + |lo| <= (1 + 2⁻⁸)²|v|;
+# * y, kernel vs `split_intra_chunk`: C·B differs by the two sum orders over
+#   st (2γ(st)·A), W = fl(s·D) by the two roundings (2u), the splits by
+#   2·SSD_SPLIT, and the sums over the 2Qp hi and lo terms (Qp = Q padded to
+#   64) by 2(1 + 2⁻⁸)²γ(2Qp); every |W| <= (1 + γ(st))(1 + u)·A·D.  Against
+#   `reference_intra_chunk`, which does not split and sums Q terms, one
+#   split and γ(2Qp) + γ(Q) instead;
+# * h: both sides form the same tail·xdt and split it alike, so only the
+#   sum orders differ, 2(1 + 2⁻⁸)²γ(2Qp); against the reference, one split,
+#   (1 + 2⁻⁸)²γ(2Qp) + γ(Q);
+# * a and the chunk-local prefix sums: the same float32 steps, bitwise;
+# * the full scan through `ops.ssd_scan`, kernel vs interpret=True: the
+#   inter-chunk carry, the C·h product and the sums repeat the same float32
+#   steps on values that differ by the above, adding 2γ(st + nC + 2) of the
+#   full magnitude sum (the scan on |xdt|, |b|, |c|);
+# * SSD_MAJORANT: T itself is a float32 sum, within γ(st + Q + 2) (2⁻²⁴) of
+#   its value.
+SSD_SUM_U = 2.0 ** -22
+SSD_SPLIT = 2.0 ** -16
+SSD_MAJORANT = 1 + 2.0 ** -10
 # full scan vs the naive per-step recurrence: float32 sums in another
 # order, over bf16 inputs both sides widen exactly
 SSD_NAIVE_RTOL = 1e-4
-# serving: prefill logits of the kernel run vs the interpret=True run
-# (bitwise expected, as above) and of the card vs the CPU at float32
+# serving: prefill logits of the card vs the CPU at float32 (the goldens),
+# and the floor of the Mamba2 serving gate below
 SERVE_LOGIT_ATOL = 5e-2
+# Mamba2 serving, the bf16 kernel run vs the interpret=True run (the
+# reference's function).  The full-width model with random bf16 weights
+# turns a float32 reordering in one mixer into logits that differ by O(1):
+# a third run, interpret=True with the kernel's plain version
+# (`split_intra_chunk`) in the reference's place, involves no kernel and
+# moved the prefill logits by up to 1.60 (mean 0.222; 8 of 8 requests'
+# tokens parted) on an H100 80GB HBM3 at 700 W, the kernel run by 1.70
+# (mean 0.222).
+# The gate holds the kernel run to that reach, measured in the same run:
+# prefill logits within SERVE_GAP_FACTOR × the plain run's largest (and
+# mean) gap, and a request's tokens may part from interpret=True's only
+# where interpret=True's top two logits lie within that reach of each
+# other.  The factor is empirical, not derived: the two runs are
+# reorderings of one kind and size (ratio 1.06 of the maxima, 1.00 of the
+# means, in that run), and the gate sits above the spread of 8 requests.
+SERVE_GAP_FACTOR = 2.0
 GOLDEN_LOGIT_ATOL = 1e-4
 # the MoE smoke golden: granite's attention has no qk-norm, so its float32
 # scores reach ~100 and the CPU and the card round them apart by more
@@ -161,16 +212,24 @@ def device_activity(prof):
 
 def device_time_ms(fn, reps):
     """Device time per call: the kernels (and copies) that `reps` calls
-    put on the card, summed by the profiler, after a warm-up."""
+    put on the card, summed by the profiler, after a warm-up.  A profile
+    that saw no device work at all (seen once on the H100) is taken
+    again."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return device_activity(prof)[0] * 1e3 / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        busy = device_activity(prof)[0]
+        if busy > 0:
+            return busy * 1e3 / reps
+        print("device time: the profiler saw no device work; profiling "
+              "again")
+    raise AssertionError("the profiler saw no device work in three tries")
 
 
 def fleet_axes(scale, scenarios=("low", "med", "high")):
@@ -432,62 +491,163 @@ def ssd_inputs(dev, S, seed, nh=80, hd=64, st=128):
     return t(xdt, bf), t(log_a, torch.float32), t(b, bf), t(c, bf)
 
 
+def ssd_coefficients(Q, st, nC=1):
+    """The bf16 kernel's bounds as multiples of the magnitude sums, with
+    the constants above (`ref.split_coefficients`)."""
+    from repro_torch.kernels.ssd_scan.ref import split_coefficients
+    return split_coefficients(Q, st, nC, u=SSD_SUM_U, split=SSD_SPLIT,
+                              majorant=SSD_MAJORANT)
+
+
 def ssd_bound(S, Q=128, nh=80, hd=64, st=128):
     """(bytes, flop) one intra-chunk launch must move and do: each input
-    read once, each output written once; y over the causal triangle, C·B
-    once per chunk, the decay (sub, exp, mul) per head, the chunk state."""
+    read once, each output (y, h, a and the prefix sums) written once; y
+    over the causal triangle, C·B once per chunk, the decay (sub, exp,
+    mul) per head, the chunk state."""
     nC = -(-S // Q)
     Sp = nC * Q
     tri = Q * (Q + 1) // 2
     n_bytes = (Sp * nh * hd * 2 + Sp * nh * 4 + 2 * Sp * st * 2     # in
-               + Sp * nh * hd * 4 + nC * nh * hd * st * 4 + nC * nh * 4)
+               + Sp * nh * hd * 4 + nC * nh * hd * st * 4 + nC * nh * 4
+               + Sp * nh * 4)
     n_flop = nC * (nh * tri * hd * 2 + tri * st * 2 + nh * tri * 3
                    + nh * Q * hd * st * 2 + nh * Q * hd)
     return n_bytes, n_flop
 
 
+def ssd_shares(got, plain, majorants, co, which):
+    """Shares of the derived bounds (<= 1 passes) of the bf16 kernel's y
+    and h against one plain version; a and the prefix sums bitwise."""
+    import torch
+    ty, th = majorants
+
+    def share(g, w, t, c):
+        err = (g - w).abs()
+        return float(torch.where(err > 0, err / (c * t), 0.0).max())
+    return dict(y=share(got[0], plain[0], ty, co["y_" + which]),
+                h=share(got[1], plain[1], th, co["h_" + which]),
+                err=float((got[0] - plain[0]).abs().max()),
+                exact=torch.equal(got[2], plain[2])
+                and torch.equal(got[3], plain[3]))
+
+
+def ptxas_report(log):
+    """{function: registers}, {function: spilled bytes} and the lines of
+    `-Xptxas -v` output that name each function's properties."""
+    import re
+    regs, spills, fn = {}, {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            spills[fn] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            regs[fn] = int(m.group(1))
+    return regs, spills
+
+
+def check_ssd_build(lib):
+    """The ssd_scan library's build log: no spills in any kernel, no
+    ptxas warning C7510-C7515 (wgmma serialised) for the tensor-core
+    kernel; prints its register counts."""
+    import re
+    log = lib.info["log"]
+    regs, spills = ptxas_report(log)
+    tc = {fn: n for fn, n in regs.items() if "ssd_intra_chunk_tc" in fn}
+    serving = [n for fn, n in tc.items() if "tcILi64ELi64ELi128E" in fn]
+    warned = [line.strip() for line in log.splitlines()
+              if re.search(r"C751[0-5]", line)
+              and "ssd_intra_chunk_tc" in line]
+    spilled = {fn: n for fn, n in spills.items() if n}
+    print(f"build check: ssd_scan: {len(tc)} tensor-core instances, "
+          f"{min(tc.values(), default=0)}-{max(tc.values(), default=0)} "
+          f"registers; the serving instance (hd 64, st 128) "
+          f"{serving} registers; {len(regs) - len(tc)} CUDA-core instances; "
+          f"spills {spilled or 'none'}; C7510-C7515 warnings "
+          f"{len(warned)}")
+    if not tc or len(serving) != 1 or spilled or warned:
+        raise AssertionError("ssd_scan build: "
+                             + ("; ".join(warned[:3]) or str(spilled)
+                                or "tensor-core kernel missing"))
+
+
 def check_ssd_kernel(dev):
+    """The bf16 tensor-core kernel at the serving widths (S 1024 and S 1000,
+    padded) against its plain version `split_intra_chunk` and against the
+    reference's function, each within its derived bound, and the full scan
+    within the bound of the interpret=True scan and SSD_NAIVE_RTOL of the
+    naive recurrence; a bf16 shape the tensor cores do not take, and
+    float32, on the CUDA-core kernel bitwise; then device times."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.ssd_scan import kernel as ker
     from repro_torch.kernels.ssd_scan import ops
-    from repro_torch.kernels.ssd_scan.ref import (reference_intra_chunk,
-                                                  reference_ssd)
-    Q = 128
+    from repro_torch.kernels.ssd_scan.ref import (intra_chunk_majorants,
+                                                  reference_intra_chunk,
+                                                  reference_ssd,
+                                                  split_intra_chunk)
+    Q, st = 128, 128
     worst = 0.0
     for S in (1024, 1000):
         args = ssd_inputs(dev, S, seed=S)
         pad = (-S) % Q
         padded = [F.pad(a, (0, 0) * (a.dim() - 2) + (0, pad)) for a in args]
         got = ker.ssd_intra_chunk(*padded, Q)
-        want = reference_intra_chunk(*padded, Q)
         torch.cuda.synchronize()
-        parts = []
-        for name, g, w in zip(("y_intra", "h_chunk", "a_chunk"), got, want):
-            if g.shape != w.shape or not torch.isfinite(g).all():
-                raise AssertionError(f"ssd_scan S={S}: `{name}` has shape "
-                                     f"{tuple(g.shape)} or is not finite")
-            err = float((g - w).abs().max())
-            scale = float(w.abs().max())
-            rel = err / scale if scale else err
-            if err > SSD_RTOL * scale:
-                raise AssertionError(
-                    f"ssd_scan S={S}: `{name}` differs from the plain "
-                    f"version by {err} (max |value| {scale})")
-            worst = max(worst, err)
-            parts.append(f"{name} {tuple(g.shape)} max abs err {err:.3e}, "
-                         f"max rel err {rel:.3e}, bitwise "
-                         f"{torch.equal(g, w)}")
+        for g in got:
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"ssd_scan S={S}: an output is not "
+                                     "finite")
+        co = ssd_coefficients(Q, st, -(-S // Q))
+        majorants = intra_chunk_majorants(*padded, Q)
+        split = ssd_shares(got, split_intra_chunk(*padded, Q), majorants, co,
+                           "split")
+        ref = ssd_shares(got, reference_intra_chunk(*padded, Q), majorants,
+                         co, "ref")
         y_k = ops.ssd_scan(*args, chunk=Q)
         y_p = ops.ssd_scan(*args, chunk=Q, interpret=True)
-        torch.cuda.synchronize()
-        if y_k.shape != (1, S, 80, 64) or not torch.equal(y_k, y_p):
-            raise AssertionError(f"ssd_scan S={S}: the full scan through the "
-                                 "kernel differs from interpret=True")
+        t_full = ops.ssd_scan(args[0].abs(), args[1], args[2].abs(),
+                              args[3].abs(), chunk=Q, interpret=True)
+        d_full = (y_k - y_p).abs()
+        full = float(torch.where(d_full > 0, d_full / (co["full"] * t_full),
+                                 0.0).max())
+        worst = max(worst, split["err"])
         print(f"kernel check: ssd_scan S={S} (pad {pad}), 80 heads x 64, "
-              f"state 128, chunk {Q}, bf16 inputs (tolerance {SSD_RTOL} of "
-              f"max |value|): " + "; ".join(parts)
-              + "; full scan equal to interpret=True")
+              f"state 128, chunk {Q}, bf16 inputs, tensor cores: vs its plain "
+              f"version (split_intra_chunk) y {split['y']:.3e} and h "
+              f"{split['h']:.3e} of the derived bound (y max abs err "
+              f"{split['err']:.3e}); vs the reference's function y "
+              f"{ref['y']:.3e} and h {ref['h']:.3e} of it (y max abs err "
+              f"{ref['err']:.3e}); a and the prefix sums bitwise "
+              f"{split['exact'] and ref['exact']}; full scan vs "
+              f"interpret=True {full:.3e} of its bound (coefficients "
+              + ", ".join(f"{k} {v:.3e}" for k, v in co.items()) + ")")
+        if not (max(split["y"], split["h"], ref["y"], ref["h"], full) <= 1
+                and split["exact"] and ref["exact"]
+                and y_k.shape == (1, S, 80, 64)):
+            raise AssertionError(f"ssd_scan S={S}: the bf16 kernel is "
+                                 "outside its derived bounds")
+
+    # the CUDA-core kernel: float32, and bf16 at a head dim of 8
+    for dtype, hd in ((torch.float32, 64), (torch.bfloat16, 8)):
+        xdt, log_a, b, c = ssd_inputs(dev, 256, seed=7)
+        xdt = xdt[..., :hd].to(dtype).contiguous()
+        b, c = b.to(dtype).contiguous(), c.to(dtype).contiguous()
+        if ker.uses_tensor_cores(Q, hd, st, dtype):
+            raise AssertionError(f"ssd_scan {dtype} hd={hd}: expected the "
+                                 "CUDA-core kernel")
+        got = ker.ssd_intra_chunk(xdt, log_a, b, c, Q)
+        want = reference_intra_chunk(xdt, log_a, b, c, Q)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"ssd_scan {dtype} hd={hd}: the CUDA-core "
+                                 "kernel differs from its plain version")
+        print(f"kernel check: ssd_scan S=256, 80 heads x {hd}, {dtype}, "
+              f"CUDA cores: all four outputs bitwise its plain version")
 
     args = ssd_inputs(dev, 256, seed=256)
     y = ops.ssd_scan(*args, chunk=Q)
@@ -502,18 +662,22 @@ def check_ssd_kernel(dev):
 
     args = ssd_inputs(dev, 1024, seed=1024)
     ms = device_time_ms(lambda: ker.ssd_intra_chunk(*args, Q), 50)
-    plain_ms = device_time_ms(lambda: reference_intra_chunk(*args, Q), 3)
+    plain_ms = device_time_ms(lambda: split_intra_chunk(*args, Q), 3)
+    ref_ms = device_time_ms(lambda: reference_intra_chunk(*args, Q), 3)
+    wall_ms = cuda_time_ms(lambda: ker.ssd_intra_chunk(*args, Q), 50)
     n_bytes, n_flop = ssd_bound(1024)
-    t_bytes, t_flop = n_bytes / HBM_BYTES_PER_S, n_flop / FP32_FLOP_PER_S
+    t_bytes, t_flop = n_bytes / HBM_BYTES_PER_S, n_flop / BF16_FLOP_PER_S
     by = "bytes" if t_bytes >= t_flop else "operations"
     bound_s = max(t_bytes, t_flop)
-    tc_s = max(t_bytes, n_flop / BF16_FLOP_PER_S)
-    print(f"kernel time: ssd_scan S=1024: device time per call kernel "
-          f"{ms * 1e3:.3f} us, plain {plain_ms * 1e3:.3f} us; bound "
-          f"{bound_s * 1e6:.3f} us ({by}: {n_bytes} B at 3.35 TB/s = "
-          f"{t_bytes * 1e6:.3f} us, {n_flop} flop at 67 TFLOP/s float32 = "
-          f"{t_flop * 1e6:.3f} us); with bf16 tensor cores (989 TFLOP/s) "
-          f"the bound would be {tc_s * 1e6:.3f} us")
+    f32_s = max(t_bytes, n_flop / FP32_FLOP_PER_S)
+    print(f"kernel time: ssd_scan S=1024 bf16: device time per call kernel "
+          f"{ms * 1e3:.3f} us (back-to-back wall {wall_ms * 1e3:.3f} us, host "
+          f"gaps included), plain version (split_intra_chunk) "
+          f"{plain_ms * 1e3:.3f} us, the reference's function "
+          f"{ref_ms * 1e3:.3f} us; bound {bound_s * 1e6:.3f} us ({by}: "
+          f"{n_bytes} B at 3.35 TB/s = {t_bytes * 1e6:.3f} us, {n_flop} flop "
+          f"at 989 TFLOP/s bf16 = {t_flop * 1e6:.3f} us); on the float32 CUDA "
+          f"cores (67 TFLOP/s) the bound would be {f32_s * 1e6:.3f} us")
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_s * 1e3, bound_by=by)
 
@@ -754,13 +918,38 @@ def check_gating_kernel(dev):
 class Recorder:
     """Stands in for the model in one engine run: passes every call
     through, times each prefill (synchronised) and keeps its logits, and
-    keeps whether every logit was finite."""
+    keeps whether every logit was finite.  With `margins`, it also keeps
+    the top-2 logit margin behind every token it chose, by request."""
 
-    def __init__(self, model):
+    def __init__(self, model, margins=False):
         import torch
         self.model, self.cfg, self.device = model, model.cfg, model.device
         self.logits, self.prefill_s = [], []
         self.finite = torch.ones((), dtype=torch.bool, device=model.device)
+        self.engine = None                 # set once the engine exists
+        self.margins = [] if margins else None   # (request ids, margins)
+
+    def _margin(self, logits, rids):
+        if self.margins is not None:
+            top = logits.float().topk(2, dim=-1).values
+            self.margins.append((rids, top[..., 0] - top[..., 1]))
+
+    def margins_by_request(self, n):
+        """Per request, the margin behind each of its tokens, in order:
+        prefills admit requests in submission order, then each decode step
+        adds one token to every live slot."""
+        out = [[] for _ in range(n)]
+        n_prefill = 0
+        for rids, m in self.margins:
+            m = m.reshape(-1).tolist()
+            if rids is None:                  # a prefill: one request
+                out[n_prefill].append(m[0])
+                n_prefill += 1
+            else:
+                for rid, v in zip(rids, m):
+                    if rid is not None:
+                        out[rid].append(v)
+        return out
 
     def _sync(self):
         import torch
@@ -776,25 +965,30 @@ class Recorder:
         self.prefill_s.append(time.perf_counter() - t0)
         self.logits.append(logits)
         self.finite &= torch.isfinite(logits).all()
+        self._margin(logits[0], None)
         return logits, caches
 
     def decode_step(self, params, token, pos, caches):
         import torch
         logits, caches = self.model.decode_step(params, token, pos, caches)
         self.finite &= torch.isfinite(logits).all()
+        if self.margins is not None:
+            self._margin(logits, [None if r is None else r.rid
+                                  for r in self.engine.slot_req])
         return logits, caches
 
     def init_caches(self, batch, max_seq):
         return self.model.init_caches(batch, max_seq)
 
 
-def serve_once(model, params, prompts, engine_kw, max_new):
+def serve_once(model, params, prompts, engine_kw, max_new, margins=False):
     """One engine run over `prompts`: outputs, prefill logits, stats and
-    times."""
+    times; with `margins`, the top-2 logit margin behind every token."""
     import torch
     from repro_torch.serve.engine import Request, ServeEngine
-    rec = Recorder(model)
+    rec = Recorder(model, margins)
     engine = ServeEngine(rec, params, **engine_kw)
+    rec.engine = engine
     reqs = [Request(rid, p, max_new_tokens=max_new)
             for rid, p in enumerate(prompts)]
     for r in reqs:
@@ -811,7 +1005,8 @@ def serve_once(model, params, prompts, engine_kw, max_new):
     return dict(outputs=[list(r.output) for r in reqs],
                 logits=torch.cat(rec.logits).float().cpu(),
                 stats=dict(engine.stats), steps=steps, wall=wall,
-                prefill_s=sum(rec.prefill_s))
+                prefill_s=sum(rec.prefill_s),
+                margins=margins and rec.margins_by_request(len(reqs)))
 
 
 def to_dev(tree, dev):
@@ -1028,7 +1223,9 @@ def serve_main_path(dev):
     import numpy as np
     import torch
     from repro_torch.configs.mamba2_2p7b import CONFIG
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.kernel import ssd_intra_chunk
+    from repro_torch.kernels.ssd_scan.ref import split_intra_chunk
     from repro_torch.models.api import build_model
     cfg = dataclasses.replace(CONFIG, use_flash_kernel=True)
     model = build_model(cfg, dev)
@@ -1064,26 +1261,76 @@ def serve_main_path(dev):
         if len(out) != SERVE_NEW or not all(0 <= t < cfg.vocab for t in out):
             raise AssertionError(f"serving: bad output {out}")
     ssd_intra_chunk.launches = 0
-    plain = serve(build_model(cfg, dev, interpret=True))
+    plain = serve_once(build_model(cfg, dev, interpret=True), params,
+                       prompts, SERVE, SERVE_NEW, margins=True)
+    # the same run with the kernel's plain version in the reference's
+    # place: the model's own reach under a float32 reordering, no kernel
+    real_ref = ssd_ops.reference_intra_chunk
+    ssd_ops.reference_intra_chunk = split_intra_chunk
+    try:
+        split = serve(build_model(cfg, dev, interpret=True))
+    finally:
+        ssd_ops.reference_intra_chunk = real_ref
     if ssd_intra_chunk.launches != 0:
         raise AssertionError("serving: interpret=True launched the kernel")
-    err = float((plain["logits"] - runs[0]["logits"]).abs().max())
-    if plain["outputs"] != runs[0]["outputs"]:
-        raise AssertionError("serving: interpret=True gave other tokens")
-    if not err <= SERVE_LOGIT_ATOL:
-        raise AssertionError(f"serving: prefill logits of interpret=True "
-                             f"differ by {err}")
+    gap = lambda r: (r["logits"] - plain["logits"]).abs()
+    k_gap, s_gap = gap(runs[0]), gap(split)
+    reach = max(SERVE_LOGIT_ATOL, SERVE_GAP_FACTOR * float(s_gap.max()))
+    # tokens: equal, or parting only where interpret=True's own top two
+    # logits lie within the reach of each other
+    parted = []
+    for rid, (got, want) in enumerate(zip(runs[0]["outputs"],
+                                          plain["outputs"])):
+        if got != want:
+            t = next(i for i, (g, w) in enumerate(zip(got, want)) if g != w)
+            parted.append((rid, t, plain["margins"][rid][t]))
+    n_split = sum(a != b for a, b in zip(split["outputs"], plain["outputs"]))
+    print(f"serving: prefill logits vs interpret=True: kernel max "
+          f"{float(k_gap.max()):.4f}, mean {float(k_gap.mean()):.5f}; its "
+          f"plain version (split_intra_chunk, no kernel) max "
+          f"{float(s_gap.max()):.4f}, mean {float(s_gap.mean()):.5f}; "
+          f"kernel vs plain version max "
+          f"{float((runs[0]['logits'] - split['logits']).abs().max()):.4f}; "
+          f"reach {reach:.4f}; tokens: {len(parted)} of {SERVE_REQUESTS} "
+          f"requests part from interpret=True with the kernel (request, "
+          f"first differing token, interpret=True's top-2 logit margin "
+          f"there: {parted}), {n_split} with the plain version; smallest "
+          f"margin behind any interpret=True token "
+          f"{min(min(m) for m in plain['margins']):.3e}")
+    if any(not m < reach for _, _, m in parted):
+        raise AssertionError("serving: interpret=True gave other tokens "
+                             "where its top-2 margin is not below the reach "
+                             f"{reach}")
+    if not (float(k_gap.max()) <= reach and float(k_gap.mean()) <=
+            max(SERVE_LOGIT_ATOL, SERVE_GAP_FACTOR * float(s_gap.mean()))):
+        raise AssertionError("serving: prefill logits of the kernel run are "
+                             "farther from interpret=True than its plain "
+                             "version's allow")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print_serving_runs(runs)
     print(f"serving: ssd_scan launches {launches} (= {SERVE_REQUESTS} "
           f"prefills x {cfg.n_layers} layers); repeat bitwise equal; "
           f"interpret=True run ({plain['wall']:.3f} s wall, prefill "
-          f"{plain['prefill_s'] / SERVE_REQUESTS * 1e3:.2f} ms per request) "
-          f"gave the same tokens, prefill logits max abs diff {err:.3e} "
-          f"(tolerance {SERVE_LOGIT_ATOL}); every logit finite; peak "
+          f"{plain['prefill_s'] / SERVE_REQUESTS * 1e3:.2f} ms per request); "
+          f"every logit finite; peak "
           f"device memory {peak:.2f} GiB; first tokens "
           f"{[o[:4] for o in runs[0]['outputs'][:2]]}")
-    profile_serving(lambda: serve(model), "serving")
+    # ops.ssd_scan takes the kernel's prefix sums: the cumsums left are the
+    # final states' (models/ssm.py `_final_state`), one per layer per prefill
+    real, cumsums = torch.cumsum, [0]
+
+    def counted(*args, **kw):
+        cumsums[0] += 1
+        return real(*args, **kw)
+    torch.cumsum = counted
+    try:
+        profile_serving(lambda: serve(model), "serving")
+    finally:
+        torch.cumsum = real
+    print(f"serving: {cumsums[0]} torch.cumsum calls in the profiled run")
+    if cumsums[0] > SERVE_REQUESTS * cfg.n_layers:
+        raise AssertionError(f"serving: {cumsums[0]} torch.cumsum calls, "
+                             "ssd_scan takes one again")
     return launches
 
 
@@ -1540,6 +1787,8 @@ def main():
               + " | ".join(line.strip() for line in info["log"].splitlines()
                            if "registers" in line or "spill" in line))
 
+    check_ssd_build(ssd_ker.LIBRARY)
+
     t0 = time.perf_counter()
     stats = check_kernel(dev)
     timings["kernel check"] = time.perf_counter() - t0
@@ -1607,7 +1856,11 @@ def main():
         dict(name="ssd_scan", route="cuda",
              source="src/repro_torch/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan/kernel.py:52",
-             launches=ssd_launches, library_ms=None, **ssd_stats),
+             launches=ssd_launches, library_ms=None,
+             dispatch="bf16 with hd in {16,32,64,128} and st in "
+                      "{16,32,64,128,256} (the serving path): tensor cores; "
+                      "float32 and other bf16 shapes: CUDA cores",
+             **ssd_stats),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:67",

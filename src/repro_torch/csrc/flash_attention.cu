@@ -84,6 +84,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -381,68 +383,6 @@ struct Smem {
 static_assert(Smem<128, 2>::kBytes <= 227 * 1024,
               "hd 128 with two warpgroups exceeds an H100 SM's shared memory");
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile("{\n.reg .pred p;\n"
-                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                 "selp.u32 %0, 1, 0, p;\n}\n"
-                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-// One box of a 3-D tensor map into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-         "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor: start address, leading and stride byte
-// offsets (16-byte units) and the swizzle layout type.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, int layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
-         static_cast<uint64_t>(layout) << 62;
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keeps the compiler from moving reads or writes of wgmma's registers
-// across the asynchronous product.
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
 // S[64 x 128] = A[64 x 16] . B[128 x 16]^T, both K-major in shared memory:
 // the first step of S.  Its outputs are write-only, so S's registers are
 // dead to the compiler from P's conversion until here and hold nothing
@@ -503,95 +443,6 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
-// O[64 x 16] += P[64 x 16] . V[16 x 16]: P from registers, V MN-major
-// (transposed) in shared memory.
-__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t* a,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}"
-      ", {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// O[64 x 32] += P[64 x 16] . V[16 x 32]: P from registers, V MN-major
-// (transposed) in shared memory.
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t* a,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
-      ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// O[64 x 64] += P[64 x 16] . V[16 x 64]: P from registers, V MN-major
-// (transposed) in shared memory.
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31}"
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// O[64 x 128] += P[64 x 16] . V[16 x 128]: P from registers, V MN-major
-// (transposed) in shared memory.
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63}"
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int HD>
-__device__ __forceinline__ void wgmma_pv(float (&d)[HD / 2],
-                                         const uint32_t* a, uint64_t db) {
-  if constexpr (HD == 16) wgmma_rs_n16(d, a, db);
-  else if constexpr (HD == 32) wgmma_rs_n32(d, a, db);
-  else if constexpr (HD == 64) wgmma_rs_n64(d, a, db);
-  else wgmma_rs_n128(d, a, db);
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // RN-even
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -639,7 +490,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
       mbar_expect_tx(q_bar, W * T::kQBytes);
       for (int w = 0; w < W; ++w)
         for (int p = 0; p < T::kPanels; ++p)
-          tma_load(base + w * T::kQBytes + p * kRows * T::kSwizzle, &tm_q,
+          tma_load_3d(base + w * T::kQBytes + p * kRows * T::kSwizzle, &tm_q,
                    q_bar, p * T::kPanel, q0, b * H + h0 + w);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % kStages;
@@ -648,9 +499,9 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
         mbar_expect_tx(full + 8 * s, 2 * T::kKVBytes);
         const uint32_t kt = base + L::kK + s * 2 * T::kKVBytes;
         for (int p = 0; p < T::kPanels; ++p) {
-          tma_load(kt + p * kKeys * T::kSwizzle, &tm_k, full + 8 * s,
+          tma_load_3d(kt + p * kKeys * T::kSwizzle, &tm_k, full + 8 * s,
                    p * T::kPanel, t * kKeys, b * Hk + hk);
-          tma_load(kt + T::kKVBytes + p * kKeys * T::kSwizzle, &tm_v,
+          tma_load_3d(kt + T::kKVBytes + p * kKeys * T::kSwizzle, &tm_v,
                    full + 8 * s, p * T::kPanel, t * kKeys, b * Hk + hk);
         }
       }
@@ -747,7 +598,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kKeys / 16; ++kk)
-      wgmma_pv<HD>(o_acc, pa + 4 * kk,
+      wgmma_rs(o_acc, pa + 4 * kk,
                    smem_desc(vt + kk * 16 * T::kSwizzle,
                              kKeys * T::kSwizzle, 8 * T::kSwizzle,
                              T::kLayout));
@@ -801,32 +652,6 @@ cudaError_t launch_f32(int hd, int B, int H, int Hk, int Sq, int Skv,
     case 128: return go(flash_fwd_f32<128>);
     default: return cudaErrorInvalidValue;
   }
-}
-
-// cuTensorMapEncodeTiled is a driver call: fetched through the runtime's
-// entry-point query, so the library needs no -lcuda.
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // [n_heads, S, HD] bf16 as a 3-D map whose box is one panel of `rows`

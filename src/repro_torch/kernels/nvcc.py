@@ -2,10 +2,11 @@
 
 Each kernel module holds one `KernelLibrary`: a `.cu` file with a plain C
 interface, compiled into ``build/repro_torch_kernels/<hash>/lib<name>.so``
-under the checkout (the hash covers the source and the flags) and loaded
-with `ctypes`.  Nothing is compiled while a module is imported: the first
-launch builds, or a caller builds several libraries at once with
-`build_all`, one `nvcc` process per source, all started together.
+under the checkout (the hash covers the source, the shared headers
+``csrc/*.cuh`` and the flags) and loaded with `ctypes`.  Nothing is
+compiled while a module is imported: the first launch builds, or a
+caller builds several libraries at once with `build_all`, one `nvcc`
+process per source, all started together.
 """
 from __future__ import annotations
 
@@ -39,7 +40,8 @@ def _nvcc() -> str:
 class KernelLibrary:
     """One CUDA source, its flags, its built library and its ctypes
     handle.  `info` records the build's seconds, whether it was cached,
-    and the compiler's register/shared-memory report."""
+    and the compiler's register/shared-memory report (kept beside the
+    library, so a cached build still has it)."""
 
     def __init__(self, name: str, source: str, flags: tuple, bind):
         self.name = name
@@ -51,7 +53,8 @@ class KernelLibrary:
         self.info: dict = {}
 
     def _paths(self):
-        key = hashlib.sha256(self.source.read_bytes()
+        headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+        key = hashlib.sha256(self.source.read_bytes() + headers
                              + " ".join(self.flags).encode()).hexdigest()
         out = BUILD_ROOT / key[:16] / f"lib{self.name}.so"
         return out, out.parent / f".{self.name}.{os.getpid()}.tmp.so"
@@ -75,8 +78,9 @@ class KernelLibrary:
             if not out.is_file():
                 raise RuntimeError(f"{self.name}: build was not started")
             if not self.info:
+                log = out.with_suffix(".log")
                 self.info = dict(path=str(out), seconds=0.0, cached=True,
-                                 log="")
+                                 log=log.read_text() if log.is_file() else "")
             return out
         rc = self._proc.wait()
         self._log.seek(0)
@@ -86,6 +90,7 @@ class KernelLibrary:
         if rc != 0:
             raise RuntimeError(f"nvcc failed on {self.source.name} "
                                f"({rc}):\n{log}")
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
         self.info = dict(path=str(out), cached=False, log=log,
                          seconds=time.perf_counter() - self._t0)

@@ -3,7 +3,9 @@
 It follows `repro.kernels.ssd_scan.ops.ssd_scan` step by step: pad the
 sequence to a chunk multiple with identity steps (xdt = 0, log_a = 0),
 run the intra-chunk pass once, carry the chunk states across chunks, add
-their contribution and cut the padding off.  Tensors on a CUDA device
+their contribution and cut the padding off.  The intra-chunk pass also
+returns its chunk-local prefix sums of log_a, which the inter-chunk term
+reuses where the reference takes a cumsum again.  Tensors on a CUDA device
 launch the kernel, or raise if it cannot be built or launched; tensors
 on the CPU take the plain version (`ref.reference_intra_chunk`), as does
 `interpret=True` on whatever device the tensors are on.
@@ -47,9 +49,10 @@ def ssd_scan(xdt, log_a, b, c, chunk: int = 128, interpret: bool = False):
     nC = Sp // Q
 
     if interpret or xdt.device.type == "cpu":
-        y_intra, h_chunk, a_chunk = reference_intra_chunk(xdt, log_a, b, c, Q)
+        y_intra, h_chunk, a_chunk, acum = reference_intra_chunk(
+            xdt, log_a, b, c, Q)
     else:
-        y_intra, h_chunk, a_chunk = ssd_intra_chunk(
+        y_intra, h_chunk, a_chunk, acum = ssd_intra_chunk(
             xdt.contiguous(), log_a.contiguous(), b.contiguous(),
             c.contiguous(), Q)
 
@@ -61,7 +64,7 @@ def ssd_scan(xdt, log_a, b, c, chunk: int = 128, interpret: bool = False):
         h = h * a_chunk[:, i, :, None, None] + h_chunk[:, i]
     h_prevs = torch.stack(h_prevs, 1)                    # [B,nC,nh,hd,st]
 
-    acum = torch.cumsum(log_a.reshape(B, nC, Q, nh), dim=2)
+    acum = acum.reshape(B, nC, Q, nh)
     y_inter = torch.einsum("bnqs,bnhds->bnqhd",
                            c.reshape(B, nC, Q, st).float(), h_prevs) * \
         torch.exp(acum)[..., None]

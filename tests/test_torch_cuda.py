@@ -89,6 +89,17 @@ def ssd_inputs(seed, device, B, S, nh, hd, st, dtype):
     return xdt, log_a, b, c
 
 
+def ssd_within(got, want, majorants, co, which):
+    """The bf16 tensor-core kernel's y and h within `split_coefficients`
+    × the magnitude sums (derived in chip_smoke.py beside SSD_SUM_U); a
+    and the prefix sums bitwise."""
+    for g, w, t, c in ((got[0], want[0], majorants[0], co["y_" + which]),
+                       (got[1], want[1], majorants[1], co["h_" + which])):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert bool(((g - w).abs() <= c * t).all())
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+
+
 @pytest.mark.parametrize("B,S,nh,hd,st,Q,dtype", [
     (2, 64, 8, 16, 16, 8, torch.float32),         # smoke widths
     (2, 64, 8, 16, 16, 32, torch.bfloat16),
@@ -97,18 +108,93 @@ def ssd_inputs(seed, device, B, S, nh, hd, st, dtype):
     (1, 96, 4, 8, 8, 32, torch.float32),
 ])
 def test_ssd_kernel_equals_plain_version(cuda, B, S, nh, hd, st, Q, dtype):
-    """The kernel and its plain version share every rounding: bitwise."""
+    """float32 (the CUDA-core kernel): every rounding shared, bitwise.
+    bf16 (the tensor cores): within the derived bounds of its plain
+    version `split_intra_chunk` and of the reference's function."""
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
-    from repro_torch.kernels.ssd_scan.ref import reference_intra_chunk
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
     args = ssd_inputs(S + nh, cuda, B, S, nh, hd, st, dtype)
     before = ssd_kernel.ssd_intra_chunk.launches
     got = ssd_kernel.ssd_intra_chunk(*args, Q)
-    want = reference_intra_chunk(*args, Q)
+    want = ssd_ref.reference_intra_chunk(*args, Q)
     torch.cuda.synchronize()
     assert ssd_kernel.ssd_intra_chunk.launches == before + 1
-    for g, w in zip(got, want):
-        assert g.shape == w.shape and g.dtype == torch.float32
-        assert torch.equal(g, w)
+    assert len(got) == 4
+    if dtype == torch.float32:
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and g.dtype == torch.float32
+            assert torch.equal(g, w)
+        return
+    assert ssd_kernel.uses_tensor_cores(Q, hd, st, dtype)
+    majorants = ssd_ref.intra_chunk_majorants(*args, Q)
+    co = ssd_ref.split_coefficients(Q, st)
+    ssd_within(got, ssd_ref.split_intra_chunk(*args, Q), majorants, co,
+               "split")
+    ssd_within(got, want, majorants, co, "ref")
+
+
+@pytest.mark.parametrize("B,S,nh,hd,st,Q", [
+    (1, 200, 6, 64, 128, 100),     # Q off a multiple of 64
+    (2, 192, 5, 32, 32, 96),
+    (1, 256, 4, 128, 128, 128),
+    (1, 128, 6, 64, 256, 64),
+    (1, 64, 3, 16, 64, 8),
+])
+def test_ssd_tensor_core_kernel_at_other_shapes(cuda, B, S, nh, hd, st, Q):
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    args = ssd_inputs(S * hd, cuda, B, S, nh, hd, st, torch.bfloat16)
+    got = ssd_kernel.ssd_intra_chunk(*args, Q)
+    torch.cuda.synchronize()
+    majorants = ssd_ref.intra_chunk_majorants(*args, Q)
+    co = ssd_ref.split_coefficients(Q, st)
+    ssd_within(got, ssd_ref.split_intra_chunk(*args, Q), majorants, co,
+               "split")
+    ssd_within(got, ssd_ref.reference_intra_chunk(*args, Q), majorants, co,
+               "ref")
+
+
+def test_ssd_bf16_shapes_off_the_tensor_cores_are_bitwise(cuda):
+    """bf16 at a head dim of 8: the CUDA-core kernel, bitwise."""
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan.ref import reference_intra_chunk
+    args = ssd_inputs(8, cuda, 1, 256, 6, 8, 128, torch.bfloat16)
+    assert not ssd_kernel.uses_tensor_cores(128, 8, 128, torch.bfloat16)
+    got = ssd_kernel.ssd_intra_chunk(*args, 128)
+    want = reference_intra_chunk(*args, 128)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_ssd_dispatch_matches_the_source(cuda):
+    """The wrapper's `uses_tensor_cores` is the library's rule."""
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    lib = ssd_kernel.LIBRARY.library()
+    for Q in (1, 8, 64, 100, 128, 178, 193, 256):
+        for hd in (1, 8, 16, 32, 64, 128, 256):
+            for st in (8, 16, 32, 64, 128, 256):
+                assert bool(lib.ssd_intra_chunk_uses_tensor_cores(
+                    Q, hd, st)) == ssd_kernel.uses_tensor_cores(
+                        Q, hd, st, torch.bfloat16), (Q, hd, st)
+
+
+@pytest.mark.parametrize("S,chunk", [(1024, 128), (1000, 128), (100, 128)])
+def test_ssd_scan_bf16_full_scan_within_its_bound(cuda, S, chunk):
+    """The bf16 scan through the kernel against interpret=True within
+    `split_coefficients`' full-scan bound of the scan on |xdt|, |b|, |c|,
+    and the naive recurrence within 1e-4 of its largest value."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    args = ssd_inputs(S, cuda, 1, S, 8, 64, 128, torch.bfloat16)
+    y = ssd_ops.ssd_scan(*args, chunk=chunk)
+    want = ssd_ops.ssd_scan(*args, chunk=chunk, interpret=True)
+    mags = ssd_ops.ssd_scan(args[0].abs(), args[1], args[2].abs(),
+                            args[3].abs(), chunk=chunk, interpret=True)
+    Q = min(chunk, S)
+    co = ssd_ref.split_coefficients(Q, 128, -(-S // Q))
+    assert bool(((y - want).abs() <= co["full"] * mags).all())
+    naive = ssd_ref.reference_ssd(*args)
+    assert float((y - naive).abs().max()) <= 1e-4 * float(naive.abs().max())
 
 
 @pytest.mark.parametrize("S,chunk", [(8, 128), (100, 32), (1000, 128)])

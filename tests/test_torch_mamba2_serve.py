@@ -48,6 +48,7 @@ from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_ATOL = 0.1
 BF16_STATE_RTOL = 0.05
+SPLIT_LOGIT_ATOL = 1e-2
 
 
 @pytest.fixture(scope="module")
@@ -287,3 +288,31 @@ def test_entry_points_default_to_the_card():
         build_model(smoke_config())
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         t_lm.lm_spec(dataclasses.replace(smoke_config(), family="hybrid"))
+
+
+def test_bfloat16_prefill_through_the_tensor_core_plain_version(
+        ref_model, monkeypatch):
+    """bf16 prefill with the intra-chunk pass the tensor-core kernel's
+    plain version (`split_intra_chunk`, the card's arithmetic) in place of
+    the reference's function: repro's logits and state within the bf16
+    tolerances above, the same first tokens, and the reference-function
+    run's logits within SPLIT_LOGIT_ATOL (measured 0 here: the two
+    intra-chunk passes differ by ~1e-6 of y, below what moves a bf16
+    activation of this model)."""
+    from repro_torch.kernels.ssd_scan import ops as t_ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as t_ssd_ref
+    params = ref_model.init(jax.random.PRNGKey(0), dtype=jnp.bfloat16)
+    model, t_params = port(True, params, torch.bfloat16)
+    tokens = np.random.default_rng(2).integers(0, 512, (2, 40))
+    batch = {"tokens": torch.from_numpy(tokens)}
+    l_plain, _ = model.prefill(t_params, batch, 48)
+    monkeypatch.setattr(t_ssd_ops, "reference_intra_chunk",
+                        t_ssd_ref.split_intra_chunk)
+    l_t, c_t = model.prefill(t_params, batch, 48)
+    l_r, c_r = ref_model.prefill(params, {"tokens": jnp.asarray(tokens)}, 48)
+    close(l_t, l_r, rtol=0, atol=BF16_ATOL)
+    h_r = np.asarray(c_r.h)
+    assert np.linalg.norm(c_t.h.numpy() - h_r) <= \
+        BF16_STATE_RTOL * np.linalg.norm(h_r)
+    close(l_t, l_plain.numpy(), rtol=0, atol=SPLIT_LOGIT_ATOL)
+    assert torch.equal(l_t.argmax(-1), l_plain.argmax(-1))

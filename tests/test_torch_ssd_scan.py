@@ -150,3 +150,216 @@ def test_kernel_refuses_cpu_tensors():
     t = as_torch(make_inputs(0, 1, 16, 2, 8, 8))
     with pytest.raises(ValueError, match="CUDA tensors"):
         t_kernel.ssd_intra_chunk(*t, 16)
+
+
+# ---- the tensor-core kernel's plain version (`ref.split_intra_chunk`) ----
+# Its bounds are `ref.split_coefficients` × the magnitude sums
+# (`ref.intra_chunk_majorants`), derived in chip_smoke.py beside SSD_SUM_U.
+
+SPLIT_SHAPES = [
+    (1, 128, 3, 64, 128, 128),     # the serving widths, one chunk
+    (1, 200, 2, 64, 128, 100),     # Q off a multiple of 64
+    (2, 64, 8, 16, 16, 8),         # smoke widths, the smoke prefill's Q
+    (2, 64, 8, 16, 16, 32),
+]
+SUM_U = 2.0 ** -22
+SPLIT = 2.0 ** -16
+HI_LO = (1 + 2.0 ** -8) ** 2
+
+
+def bf16_inputs(seed, B, S, nh, hd, st):
+    """make_inputs with xdt, b and c rounded to bf16 (the serving path's
+    types), as float32 numpy arrays and as the port's tensors."""
+    t = as_torch(make_inputs(seed, B, S, nh, hd, st), torch.bfloat16)
+    return tuple(a.float().numpy() for a in t), t
+
+
+def bf16_round(v):
+    """float64 → the nearest bf16 value (8 significant bits), ties to
+    even, in float64."""
+    m, e = np.frexp(v)
+    return np.ldexp(np.rint(np.ldexp(m, 8)), e - 8)
+
+
+def serial_prefix(la):
+    """[B,nC,Q,nh] float32 → the running sums, one float32 add per step."""
+    out = np.empty_like(la)
+    run = la[:, :, 0]
+    out[:, :, 0] = run
+    for q in range(1, la.shape[2]):
+        run = (run + la[:, :, q]).astype(np.float32)
+        out[:, :, q] = run
+    return out
+
+
+def emulate_split(arrays, Q):
+    """`split_intra_chunk` in float64 numpy: C·B exact, decays of the
+    float32 gaps, W and tail·xdt split by `bf16_round`, exact sums."""
+    xdt, log_a, b, c = arrays
+    B, S, nh, hd = xdt.shape
+    st = b.shape[-1]
+    nC = S // Q
+    f64 = np.float64
+    x = xdt.reshape(B, nC, Q, nh, hd).astype(f64)
+    bb = b.reshape(B, nC, Q, st).astype(f64)
+    cc = c.reshape(B, nC, Q, st).astype(f64)
+    acum = serial_prefix(log_a.reshape(B, nC, Q, nh).astype(np.float32))
+    gap = acum[:, :, :, None, :] - acum[:, :, None, :, :]        # float32
+    causal = np.tril(np.ones((Q, Q), bool))[:, :, None]
+    w = np.einsum("bnqj,bnkj->bnqk", cc, bb)[..., None] * \
+        np.where(causal, np.exp(gap.astype(f64)), 0.0)
+    w_hi = bf16_round(w)
+    y = np.einsum("bnqkh,bnkhd->bnqhd", w_hi + bf16_round(w - w_hi), x)
+    tail = np.exp((acum[:, :, -1:, :] - acum).astype(f64))
+    xt = x * tail[..., None]
+    xt_hi = bf16_round(xt)
+    h = np.einsum("bnkhd,bnks->bnhds", xt_hi + bf16_round(xt - xt_hi), bb)
+    return y.reshape(B, S, nh, hd), h, acum.reshape(B, S, nh)
+
+
+def within(got, want, bound):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = np.abs(got - want)
+    assert np.all(err <= bound), float(np.max(err / np.maximum(bound,
+                                                                1e-300)))
+
+
+def test_split_bf16_rounds_to_nearest_even():
+    """hi and lo against the bit-level rule (add 0x7FFF plus the kept
+    lowest bit, clear the low 16 bits), ties included."""
+    rng = np.random.default_rng(5)
+    v = (rng.standard_normal(4096) * np.exp(rng.uniform(-20, 20, 4096))) \
+        .astype(np.float32)
+    bits = v.view(np.uint32)
+    bits[:512] = (bits[:512] & 0xFFFF0000) | 0x8000     # exact ties
+    v = bits.view(np.float32)
+
+    def rne(a):
+        u = a.view(np.uint32).astype(np.uint64)
+        return ((u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000).astype(
+            np.uint32).view(np.float32)
+    hi, lo = t_ref.split_bf16(torch.from_numpy(v))
+    np.testing.assert_array_equal(hi.numpy(), rne(v))
+    np.testing.assert_array_equal(lo.numpy(), rne(v - rne(v)))
+    assert np.all(np.abs(v.astype(np.float64) - hi.numpy() - lo.numpy())
+                  <= SPLIT * np.abs(v))
+
+
+@pytest.mark.parametrize("B,S,nh,hd,st,chunk", SPLIT_SHAPES)
+def test_split_intra_chunk_matches_a_float64_emulation(B, S, nh, hd, st,
+                                                       chunk):
+    """y within split_coefficients' y_split (the same two roundings of W
+    and the same split on each side, float32 sums on one); h within the
+    sums' term plus two splits and two roundings of tail·xdt, since the
+    emulation forms them in float64; a within two float32 ulps (the
+    library's expf); the prefix sums bitwise."""
+    arrays, t = bf16_inputs(S + hd, B, S, nh, hd, st)
+    y, h, a, acum = t_ref.split_intra_chunk(*t, chunk)
+    ty, th = t_ref.intra_chunk_majorants(*t, chunk)
+    e_y, e_h, e_acum = emulate_split(arrays, chunk)
+    co = t_ref.split_coefficients(chunk, st)
+    Qp = -(-chunk // 64) * 64
+    n = 2 * Qp * SUM_U
+    c_h = (4 * SUM_U + 2 * SPLIT + 2 * HI_LO * n / (1 - n)) * (1 + SUM_U)
+    within(y.numpy(), e_y, co["y_split"] * ty.double().numpy())
+    within(h.numpy(), e_h, c_h * th.double().numpy())
+    np.testing.assert_array_equal(acum.numpy(), e_acum)
+    last = e_acum.reshape(B, S // chunk, chunk, nh)[:, :, -1]
+    np.testing.assert_allclose(a.numpy(), np.exp(last.astype(np.float64)),
+                               rtol=2.0 ** -22, atol=0)
+
+
+@pytest.mark.parametrize("B,S,nh,hd,st,chunk", SPLIT_SHAPES)
+def test_split_intra_chunk_matches_pallas(B, S, nh, hd, st, chunk):
+    """Against `repro`'s Pallas kernel in interpret mode, within
+    split_coefficients' bounds against the reference's function, widened
+    for what the Pallas body does otherwise: its prefix sums come from
+    `jnp.cumsum` in XLA's order, each within e = 2γ(Q)·Σ|log_a| of the
+    serial ones (γ at float32's 2⁻²⁴), which moves every decay, tail and a
+    by a factor within exp(±2e); its h forms tail·B·xdt in another order
+    (2u)."""
+    arrays, t = bf16_inputs(S + nh, B, S, nh, hd, st)
+    y, h, a, _ = t_ref.split_intra_chunk(*t, chunk)
+    ty, th = t_ref.intra_chunk_majorants(*t, chunk)
+    want = r_kernel.ssd_intra_chunk(*arrays, chunk=chunk, head_block=4,
+                                    interpret=True)
+    co = t_ref.split_coefficients(chunk, st)
+    g = chunk * 2.0 ** -24
+    la_sum = np.abs(arrays[1]).reshape(B, -1, chunk, nh).sum(2).max()
+    moved = np.expm1(2 * 2 * g / (1 - g) * la_sum)
+    within(y.numpy(), want[0], (co["y_ref"] + moved) * ty.double().numpy())
+    within(h.numpy(), want[1],
+           (co["h_ref"] + 2 * SUM_U + moved) * th.double().numpy())
+    within(a.numpy(), want[2], (moved + 2.0 ** -22) * np.abs(want[2]))
+
+
+@pytest.mark.parametrize("plain", ["reference", "split"])
+def test_prefix_sums_are_serial(plain):
+    """The intra-chunk pass's 4th output: the chunk-local running sums of
+    log_a, one float32 add per step, in order."""
+    B, S, nh, hd, st, chunk = 2, 96, 4, 16, 16, 32
+    arrays, t = bf16_inputs(3, B, S, nh, hd, st)
+    fn = getattr(t_ref, f"{plain}_intra_chunk")
+    acum = fn(*t, chunk)[3]
+    want = serial_prefix(arrays[1].reshape(B, S // chunk, chunk, nh))
+    assert acum.dtype == torch.float32
+    np.testing.assert_array_equal(acum.numpy(), want.reshape(B, S, nh))
+
+
+@pytest.mark.parametrize("interpret", [False, True])
+def test_ssd_scan_takes_no_cumsum(monkeypatch, interpret):
+    """The inter-chunk term reuses the intra-chunk pass's prefix sums."""
+    t = as_torch(make_inputs(4, 1, 100, 4, 16, 16), torch.bfloat16)
+    want = t_ops.ssd_scan(*t, chunk=32, interpret=interpret)
+
+    def refuse(*args, **kw):
+        raise AssertionError("torch.cumsum called")
+    monkeypatch.setattr(torch, "cumsum", refuse)
+    monkeypatch.setattr(torch.Tensor, "cumsum", refuse)
+    assert torch.equal(t_ops.ssd_scan(*t, chunk=32, interpret=interpret),
+                       want)
+
+
+@pytest.mark.parametrize("dtype,plain,atol", [
+    (torch.float32, "reference", 1e-5),
+    (torch.bfloat16, "reference", 1e-4),
+    (torch.bfloat16, "split", 1e-4),     # the card's bf16 arithmetic
+])
+def test_scan_matches_repro_by_dtype(monkeypatch, dtype, plain, atol):
+    """The full scan against `repro`'s: float32 at 1e-5, bf16 inputs at
+    1e-4, with the intra-chunk pass the reference's function or the
+    tensor-core kernel's plain version."""
+    import jax.numpy as jnp
+    B, S, nh, hd, st, chunk = 1, 200, 8, 16, 32, 64
+    arrays = make_inputs(21, B, S, nh, hd, st)
+    t = as_torch(arrays, dtype)
+    if plain == "split":
+        monkeypatch.setattr(t_ops, "reference_intra_chunk",
+                            t_ref.split_intra_chunk)
+    out = t_ops.ssd_scan(*t, chunk=chunk)
+    j = [jnp.asarray(a) for a in arrays]
+    if dtype == torch.bfloat16:
+        j = [j[0].astype(jnp.bfloat16), j[1], j[2].astype(jnp.bfloat16),
+             j[3].astype(jnp.bfloat16)]
+    ref = np.asarray(r_ops.ssd_scan(*j, chunk=chunk, head_block=4,
+                                    interpret=True))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("Q,hd,st,dtype,tc", [
+    (128, 64, 128, torch.bfloat16, True),     # the serving path
+    (100, 64, 128, torch.bfloat16, True),     # a 100-token prompt
+    (8, 16, 16, torch.bfloat16, True),        # the smoke prefill
+    (256, 64, 128, torch.bfloat16, True),     # the default chunk
+    (64, 64, 256, torch.bfloat16, True),
+    (128, 64, 128, torch.float32, False),     # float32: CUDA cores
+    (128, 8, 128, torch.bfloat16, False),     # hd below 16
+    (128, 64, 8, torch.bfloat16, False),      # st below 16
+    (64, 256, 64, torch.bfloat16, False),     # hd 256
+    (193, 16, 256, torch.bfloat16, False),    # tiles above 227 KiB
+])
+def test_tensor_cores_take_bf16_by_shape(Q, hd, st, dtype, tc):
+    """The dispatch is by dtype and shape alone, and every shape it sends
+    to the CUDA cores is one `check_shapes` admits."""
+    t_kernel.check_shapes(Q, hd, st, dtype)
+    assert t_kernel.uses_tensor_cores(Q, hd, st, dtype) is tc
