@@ -157,12 +157,8 @@ FLASH_F32_RTOL = 1e-5
 FLASH_BF16_ULP = 2.0 ** -7
 FLASH_P_ROUND = 2.0 ** -8
 # gating_topk check: kernel vs its plain version, the same float32
-# operations in the same order.  Ids must be equal, in order, in every row
-# whose k-th and (k+1)-th probabilities differ by more than
-# GATING_MARGIN_ULP float32 ulps (closer rows are counted and printed);
-# gates within GATING_GATE_ATOL there.
-GATING_MARGIN_ULP = 4
-GATING_GATE_ATOL = 1e-6
+# operations in the same order, so gates and ids must be bitwise equal
+# (NaN bits included) at every shape and on rows with non-finite logits.
 # the scoring main path: Model.loss on [4, 4096] tokens, the reference's
 # train_4k sequence length at batch 4 (src/repro/launch/shapes.py)
 SCORE_BATCH, SCORE_SEQ, SCORE_CALLS = 4, 4096, 3
@@ -814,7 +810,8 @@ def check_flash_kernel(dev):
 # -------------------------------------------------------------- moe_gating
 
 GATING_SHAPES = ((128, 16, 2), (100, 64, 6), (256, 32, 8), (64, 8, 1),
-                 (1024, 32, 8), (4, 32, 8), (16384, 32, 8))
+                 (1024, 32, 8), (4, 32, 8), (16384, 32, 8), (77, 256, 8),
+                 (300, 127, 3))
 
 
 def gating_logits(dev, N, E, seed):
@@ -832,10 +829,18 @@ def gating_bound(N, E, k):
     return N * E * 4 + N * k * 8, N * (5 * E + k * E + 2 * k)
 
 
+def same_bits(a, b):
+    """Equal shapes and bits (float32 compared as int32, so NaN counts)."""
+    import torch
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
 def check_gating_case(dev, N, E, k, seed):
     """The kernel through `ops.fused_gating` against the plain version on
-    the same logits.  Returns (rows inside the margin, max gate error,
-    bitwise equal)."""
+    the same logits: ids and gates bitwise.  Returns the max gate error
+    (0 when bitwise)."""
     import torch
     from repro_torch.kernels.moe_gating import kernel as gk
     from repro_torch.kernels.moe_gating import ops as gops
@@ -851,40 +856,61 @@ def check_gating_case(dev, N, E, k, seed):
             not torch.isfinite(gate).all():
         raise AssertionError(f"gating_topk N={N} E={E} k={k}: output "
                              f"{tuple(gate.shape)} {idx.dtype} or not finite")
-    probs = torch.softmax(x, dim=-1).sort(dim=-1, descending=True).values
-    pk = probs[:, k - 1]
-    ulp = torch.nextafter(pk, torch.full_like(pk, 2.0)) - pk
-    clear = (pk - probs[:, k]) > GATING_MARGIN_ULP * ulp
-    near = int((~clear).sum())
-    if not torch.equal(idx[clear], want_idx[clear]):
-        raise AssertionError(f"gating_topk N={N} E={E} k={k}: ids differ "
-                             "from the plain version")
-    err = float((gate[clear] - want_gate[clear]).abs().max())
-    if not err <= GATING_GATE_ATOL:
-        raise AssertionError(f"gating_topk N={N} E={E} k={k}: gates differ "
-                             f"by {err}")
+    err = float((gate - want_gate).abs().max())
+    if not (same_bits(idx, want_idx) and same_bits(gate, want_gate)):
+        raise AssertionError(f"gating_topk N={N} E={E} k={k}: not bitwise "
+                             f"the plain version (ids equal "
+                             f"{torch.equal(idx, want_idx)}, gates max abs "
+                             f"err {err:.3e})")
     sums = float((gate.sum(-1) - 1).abs().max())
-    bitwise = torch.equal(gate, want_gate) and torch.equal(idx, want_idx)
-    print(f"kernel check: gating_topk N={N} E={E} k={k}: ids equal in order "
-          f"in {N - near} rows outside the {GATING_MARGIN_ULP}-ulp margin, "
-          f"{near} rows inside it; gates max abs err {err:.3e} (tolerance "
-          f"{GATING_GATE_ATOL}); gate sums within {sums:.3e} of 1; bitwise "
-          f"equal {bitwise}")
-    return near, err, bitwise
+    print(f"kernel check: gating_topk N={N} E={E} k={k}: ids and gates "
+          f"bitwise the plain version's; gate sums within {sums:.3e} of 1")
+    return err
+
+
+def check_gating_non_finite(dev, N, E, k):
+    """Rows with a NaN logit, a +inf logit and only -inf logits among
+    ordinary rows: ids 0..k-1 and NaN gates, bitwise the plain version's
+    (NaN ranks above every number, the first NaN first)."""
+    import torch
+    from repro_torch.kernels.moe_gating import ops as gops
+    from repro_torch.kernels.moe_gating.ref import reference_gating
+    x = gating_logits(dev, N, E, N * E)
+    x[0::4, E // 2] = float("nan")
+    x[1::4, E - 1] = float("inf")
+    x[2::4] = float("-inf")
+    bad = torch.arange(N, device=dev) % 4 < 3
+    gate, idx = gops.fused_gating(x, k)
+    want_gate, want_idx = reference_gating(x, k)
+    torch.cuda.synchronize()
+    ids = torch.arange(k, dtype=torch.int32, device=dev)
+    if not torch.equal(idx[bad], ids.expand(int(bad.sum()), k)) or \
+            not torch.isnan(gate[bad]).all() or \
+            not torch.isfinite(gate[~bad]).all():
+        raise AssertionError(f"gating_topk N={N} E={E} k={k}: non-finite "
+                             f"rows gave ids {idx[:3].tolist()}, gates "
+                             f"{gate[:3].tolist()}")
+    if not (same_bits(idx, want_idx) and same_bits(gate, want_gate)):
+        raise AssertionError(f"gating_topk N={N} E={E} k={k}: non-finite "
+                             "rows not bitwise the plain version")
+    print(f"kernel check: gating_topk N={N} E={E} k={k} with {int(bad.sum())} "
+          f"rows of NaN, +inf or only -inf logits: ids 0..{k - 1}, NaN gates, "
+          f"bitwise the plain version's")
 
 
 def check_gating_kernel(dev):
-    """The kernel against its plain version at the reference test's shapes
-    and the main path's (N 1024 per prefill, 4 per decode step, and
-    16384), a row of equal logits, then device times beside the bound."""
+    """The kernel against its plain version, bitwise, at the reference
+    test's shapes and the main path's (N 1024 per prefill, 4 per decode
+    step, and 16384), on non-finite rows and a row of equal logits; then
+    device times beside the bound and this card's launch floor."""
     import torch
     from repro_torch.kernels.moe_gating import kernel as gk
     from repro_torch.kernels.moe_gating import ops as gops
     from repro_torch.kernels.moe_gating.ref import reference_gating
-    results = [check_gating_case(dev, N, E, k, seed)
-               for seed, (N, E, k) in enumerate(GATING_SHAPES)]
-    near = sum(r[0] for r in results)
-    worst = max(r[1] for r in results)
+    worst = max(check_gating_case(dev, N, E, k, seed)
+                for seed, (N, E, k) in enumerate(GATING_SHAPES))
+    for N, E, k in ((4, 32, 8), (1024, 32, 8), (77, 256, 8), (300, 127, 3)):
+        check_gating_non_finite(dev, N, E, k)
     ties = torch.zeros((3, 32), device=dev)
     ties[1] = 1.5
     gate, idx = gops.fused_gating(ties, 8)
@@ -892,8 +918,10 @@ def check_gating_kernel(dev):
             not torch.equal(gate, torch.full_like(gate, 0.125)):
         raise AssertionError(f"gating_topk: equal logits gave ids "
                              f"{idx.tolist()}, gates {gate.tolist()}")
-    print(f"kernel check: gating_topk on rows of equal logits: ids 0..7, "
-          f"gates 1/8; {near} rows inside the margin over all shapes")
+    print("kernel check: gating_topk on rows of equal logits: ids 0..7, "
+          "gates 1/8")
+    one = torch.zeros(1, device=dev)
+    floor_ms = device_time_ms(lambda: one.add_(1.0), 200)
     times = {}
     for N in (4, 1024, 16384):
         x = gating_logits(dev, N, 32, N)
@@ -908,7 +936,8 @@ def check_gating_kernel(dev):
               f"call kernel {ms * 1e3:.3f} us, plain {plain_ms * 1e3:.3f} us; "
               f"bound {max(t_bytes, t_ops) * 1e6:.4f} us ({by}: {n_bytes} B "
               f"at 3.35 TB/s = {t_bytes * 1e6:.4f} us; {n_ops} operations at "
-              f"67 TFLOP/s float32 = {t_ops * 1e6:.4f} us)")
+              f"67 TFLOP/s float32 = {t_ops * 1e6:.4f} us); launch floor "
+              f"{floor_ms * 1e3:.3f} us (a one-element torch add_)")
     # the JSON line gives the prefill shape, N = 1024 tokens per launch
     return dict(max_abs_err=worst, **times[1024])
 
@@ -1366,6 +1395,7 @@ def profile_serving(serve, label):
           f"device busy {busy:.3f} s, idle share "
           f"{1 - busy / prof_run['wall']:.3f}, "
           f"{sum(c for c, _ in by_name.values())} kernels and copies")
+    return busy, by_name
 
 
 def dense_serve_main_path(dev):
@@ -1520,7 +1550,12 @@ def moe_serve_main_path(dev):
           f"logits max abs diff {err:.3e}; every logit finite; peak device "
           f"memory {peak:.2f} GiB; first tokens "
           f"{[o[:4] for o in runs[0]['outputs'][:2]]}")
-    profile_serving(lambda: serve(model), "moe serving")
+    busy, by_name = profile_serving(lambda: serve(model), "moe serving")
+    calls, secs = [sum(v[i] for name, v in by_name.items()
+                       if "gating_topk" in name) for i in (0, 1)]
+    print(f"moe serving profiled: gating_topk {calls} launches, device time "
+          f"{secs * 1e3:.3f} ms per run ({secs / max(calls, 1) * 1e6:.3f} us "
+          f"per launch) of {busy * 1e3:.1f} ms busy")
     activation_cost(dev, cfg, runs[0])
     return launches
 

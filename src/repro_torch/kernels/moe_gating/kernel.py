@@ -4,18 +4,22 @@ Replaces the Pallas TPU kernel `gating_topk`
 (src/repro/kernels/moe_gating/kernel.py:41, body `_gating_kernel`,
 wrapper `ops.fused_gating`).  The source is `csrc/moe_gating.cu`:
 
-* one thread per token row; a block stages its rows' logits in shared
-  memory with coalesced loads (at an odd row stride, free of bank
-  conflicts) and each thread then takes its row through the softmax, the
-  k argmax passes and the renormalisation on chip;
+* one warp per token row, a few warps per block and enough blocks to
+  spread the main path's rows over every SM (a grid-stride loop past
+  that); lane l holds columns l, l + 32, ... in registers, loaded
+  straight from device memory, with no shared memory;
+* the row max and the top-k selection by warp reductions (`redux.sync`
+  on order-preserving keys, NaN ranked above every number as
+  `torch.argmax` ranks it), the sum by each lane's columns in index
+  order and then an XOR butterfly over the lanes;
 * bound by bytes (N·E·4 in, N·k·8 out), which at the router's sizes is
   below the launch's own cost;
 * built with ``-fmad=false``, IEEE division and no fast math, summing in
   `ref.reference_gating`'s order, so gates and ids are bitwise the plain
   version's.
 
-The TPU kernel's wrapper pads N to its block; this kernel masks the
-ragged last block itself.  `gating_topk.launches` counts launches.
+The TPU kernel's wrapper pads N to its block; this kernel takes any N.
+`gating_topk.launches` counts launches.
 """
 from __future__ import annotations
 
@@ -27,13 +31,15 @@ from ..nvcc import KernelLibrary
 
 MAX_EXPERTS = 256
 MAX_TOP_K = 8
-_MAX_ROWS = 128                 # threads (token rows) per block
-_SMEM_LIMIT = 48 * 1024         # dynamic shared memory without opting in
+WARPS = 4                       # token rows (warps) per block
+# a grid of up to 16 blocks of WARPS warps per SM of the H100's 132, the
+# 64 warps an SM can hold; more rows than that take the grid-stride loop
+MAX_BLOCKS = 16 * 132
 
 
 def _bind(lib):
     fn = lib.gating_topk_launch
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
 
 
@@ -53,14 +59,10 @@ def check_sizes(E: int, top_k: int) -> None:
 
 
 def launch_shape(N: int, E: int):
-    """(rows per block, row stride in floats): the stride is odd, so a
-    warp's threads reading one column of their rows hit distinct banks,
-    and rows · stride floats fit the shared memory a launch may take."""
-    stride = E | 1
-    rows = _MAX_ROWS
-    while rows * stride * 4 > _SMEM_LIMIT:
-        rows //= 2
-    return min(rows, 32 * -(-N // 32)), stride
+    """(warps per block, blocks, columns per lane): a warp per token row,
+    WARPS rows per block, at most MAX_BLOCKS blocks; lane l of a warp
+    holds columns l, l + 32, ..., ceil(E / 32) of them."""
+    return WARPS, min(-(-N // WARPS), MAX_BLOCKS), -(-E // 32)
 
 
 def gating_topk(logits, top_k: int):
@@ -82,14 +84,14 @@ def gating_topk(logits, top_k: int):
         raise ValueError("gating_topk: logits are not contiguous")
     N, E = logits.shape
     check_sizes(E, top_k)
-    rows, stride = launch_shape(N, E)
+    warps, blocks, cols = launch_shape(N, E)
     gate = torch.empty((N, top_k), dtype=torch.float32, device=device)
     idx = torch.empty((N, top_k), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = LIBRARY.library().gating_topk_launch(
-            N, E, top_k, rows, stride, logits.data_ptr(), gate.data_ptr(),
-            idx.data_ptr(), stream)
+            N, E, top_k, cols, warps, blocks, logits.data_ptr(),
+            gate.data_ptr(), idx.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"gating_topk: launch failed with CUDA error {err}")
     gating_topk.launches += 1

@@ -412,6 +412,30 @@ def test_gating_kernel_equals_plain_version(cuda, N, E, k):
     assert torch.equal(gate, want_gate)
 
 
+@pytest.mark.parametrize("N,E,k", [(4, 32, 8), (1024, 32, 8), (100, 64, 6),
+                                   (77, 256, 8), (300, 127, 3), (64, 8, 1)])
+def test_gating_kernel_on_non_finite_rows_equals_plain_version(cuda, N, E, k):
+    """Rows with a NaN logit, a +inf logit and only −inf logits among
+    ordinary ones: ids 0..k−1 and NaN gates, as the plain version gives
+    them (NaN ranks above every number, the first NaN first); every gate
+    and id bitwise the plain version's, NaNs included."""
+    from repro_torch.kernels.moe_gating import ops as gops
+    from repro_torch.kernels.moe_gating.ref import reference_gating
+    x = gating_logits(N * E, cuda, N, E, scale=2.0)
+    x[0::4, E // 2] = float("nan")
+    x[1::4, E - 1] = float("inf")
+    x[2::4] = float("-inf")
+    bad = torch.arange(N, device=cuda) % 4 < 3
+    gate, idx = gops.fused_gating(x, k)
+    want_gate, want_idx = reference_gating(x, k)
+    torch.cuda.synchronize()
+    ids = torch.arange(k, dtype=torch.int32, device=cuda)
+    assert torch.equal(idx[bad], ids.expand(int(bad.sum()), k))
+    assert torch.isnan(gate[bad]).all() and torch.isfinite(gate[~bad]).all()
+    assert torch.equal(idx, want_idx)
+    assert torch.equal(gate.view(torch.int32), want_gate.view(torch.int32))
+
+
 def test_gating_kernel_ties_go_to_the_lowest_index(cuda):
     from repro_torch.kernels.moe_gating import ops as gops
     x = torch.zeros(3, 32, device=cuda)

@@ -130,11 +130,73 @@ def test_kernel_refuses_what_it_does_not_take():
         kernel.check_sizes(E, min(8, E))
 
 
-@pytest.mark.parametrize("N,E,rows,stride", [
-    (1024, 32, 128, 33), (4, 32, 32, 33), (16384, 64, 128, 65),
-    (100, 256, 32, 257), (33, 96, 64, 97), (5000, 127, 64, 127)])
-def test_launch_shape_fits_shared_memory(N, E, rows, stride):
-    """An odd row stride (no bank conflicts), rows · stride floats within
-    48 KiB, and no more rows per block than N needs, in warps."""
-    assert kernel.launch_shape(N, E) == (rows, stride)
-    assert stride % 2 == 1 and rows * stride * 4 <= 48 * 1024
+@pytest.mark.parametrize("N,E,shape", [
+    (4, 32, (4, 1, 1)), (1024, 32, (4, 256, 1)), (16384, 32, (4, 2112, 1)),
+    (5000, 32, (4, 1250, 1)), (100, 8, (4, 25, 1)), (33, 127, (4, 9, 4)),
+    (77, 256, (4, 20, 8))])
+def test_launch_shape_gives_a_warp_per_row(N, E, shape):
+    """(warps per block, blocks, columns per lane): 4 warps per block, a
+    block per 4 rows up to 16 blocks per SM of the H100's 132 (N 16384
+    then takes the grid-stride loop), ceil(E / 32) columns per lane."""
+    assert kernel.launch_shape(N, E) == shape
+    warps, blocks, cols = shape
+    assert warps * blocks >= min(N, warps * kernel.MAX_BLOCKS)
+    assert 32 * (cols - 1) < E <= 32 * cols <= 32 * 8
+
+
+def emulated_lane_sum(p):
+    """numpy float32, the kernel's steps: lane l sums columns l, l + 32,
+    ... of each row in index order (columns past E add nothing), then
+    every lane adds the lane `l ^ off` for off 16, 8, 4, 2, 1."""
+    N, E = p.shape
+    lanes = np.zeros((N, 32), np.float32)
+    for l in range(32):
+        cols = p[:, l::32]
+        if cols.shape[1]:
+            lanes[:, l] = cols[:, 0]
+            for c in range(1, cols.shape[1]):
+                lanes[:, l] = lanes[:, l] + cols[:, c]
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, np.arange(32) ^ off]
+    assert (lanes.view(np.int32) == lanes[:, :1].view(np.int32)).all()
+    return lanes[:, 0]
+
+
+@pytest.mark.parametrize("E", [1, 8, 16, 32, 64, 127, 256])
+def test_plain_sum_follows_the_kernel_order(E):
+    """`ref.lane_butterfly_sum` is bitwise the kernel's lane-and-butterfly
+    order, emulated step by step, on probabilities over six decades."""
+    rng = np.random.default_rng(E)
+    p = np.exp(3.0 * rng.standard_normal((257, E))).astype(np.float32)
+    got = ref.lane_butterfly_sum(torch.from_numpy(p)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32),
+                                  emulated_lane_sum(p).view(np.int32))
+
+
+def non_finite_rows(E):
+    """Rows with a NaN logit, a +inf logit, only −inf logits, and an
+    ordinary row beside them."""
+    x = logits(E, 4, E, scale=2.0)
+    x[0, E // 2] = np.nan
+    x[1, E - 1] = np.inf
+    x[2] = -np.inf
+    return x
+
+
+@pytest.mark.parametrize("E,k", [(32, 8), (64, 6), (8, 1)])
+def test_non_finite_rows_match_repro(E, k):
+    """A NaN, +inf or all-−inf row makes every probability NaN: `max`
+    propagates NaN and `argmax` takes the first NaN, so the ids are
+    0..k−1 and the gates NaN, in the plain version and `ops.fused_gating`
+    as in `repro`'s interpret-mode kernel and its oracle."""
+    x = non_finite_rows(E)
+    got = ref.reference_gating(torch.from_numpy(x), k)
+    assert torch.equal(got[1][:3], torch.arange(k, dtype=torch.int32)
+                       .expand(3, k))
+    assert torch.isnan(got[0][:3]).all() and torch.isfinite(got[0][3]).all()
+    op = ops.fused_gating(torch.from_numpy(x), k)
+    assert torch.equal(op[1], got[1])
+    np.testing.assert_array_equal(op[0].numpy(), got[0].numpy())
+    assert_matches(got, r_ref(jnp.asarray(x), k))
+    assert_matches(got, r_fused(jnp.asarray(x), k, block_n=4,
+                                interpret=True))
