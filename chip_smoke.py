@@ -10,10 +10,18 @@ the card, each with the kernel launch counts set to 0 just before it and
 read just after:
 
 * the fleet sweep: a small sweep on the card against the same sweep on
-  the CPU, then the `fleet_study` grid (the four reference designs ×
-  low/med/high GPU TDP scenarios, 12 configurations at demand_scale 0.1,
-  policy var_min) through `repro_torch.core.sweep.sweep`; it launches
-  `placement_score` once per event step;
+  the CPU, under var_min/min_waste and under the random policy, then the
+  `fleet_study` grid (the four reference designs × low/med/high GPU TDP
+  scenarios, 12 configurations at demand_scale 0.1, policy var_min)
+  through `repro_torch.core.sweep.sweep`; it launches `placement_score`
+  once per event step;
+* the single-hall Monte Carlo: the random policy's Threefry keys and
+  draws at the figures' shapes and a small `mc_sweep` grid (all four
+  policies), each on the card against the CPU, then Figs. 6, 5 and 7 of
+  `benchmarks/run.py` at their own arguments through
+  `repro_torch.core.mc_sweep.mc_sweep`, each held to its interpret=True
+  run; they launch `placement_score` once per event step, and print the
+  figures' numbers;
 * Mamba2-2.7B serving: `smoke_config()` served on the CPU and on the card
   (float32), then the full-width model (64 layers, d_model 2560, bf16
   weights drawn from a generator seeded with 0) behind `ServeEngine`
@@ -241,15 +249,17 @@ def fleet_axes(scale, scenarios=("low", "med", "high")):
     return axes, combos
 
 
-def kernel_inputs(dev, seed=0):
-    """Inputs at the main path's shapes: its padded 12-configuration
-    topology, random loads around the line-up ratings, plus rows placed
-    exactly on the `+1e-4` slack and rows without feeds."""
+def kernel_inputs(dev, seed=0, jt=None):
+    """Inputs at a main path's shapes: its padded topology (default: the
+    fleet grid's 12 configurations), random loads around the line-up
+    ratings, plus rows placed exactly on the `+1e-4` slack and rows
+    without feeds."""
     import numpy as np
     import torch
     from repro_torch.core.sweep import _prepare
-    axes, _ = fleet_axes(MAIN_SCALE)
-    jt = _prepare(axes, 0, None, dev)[0]
+    if jt is None:
+        axes, _ = fleet_axes(MAIN_SCALE)
+        jt = _prepare(axes, 0, None, dev)[0]
     N, R, _ = jt.row_cap.shape
     X = jt.lineup_cap.shape[1]
     rng = np.random.default_rng(seed)
@@ -278,12 +288,12 @@ def kernel_inputs(dev, seed=0):
             jt.is_block)
 
 
-def check_kernel(dev):
+def check_kernel(dev, jt=None, label="the fleet grid"):
     import torch
     from repro_torch.kernels.placement_score import kernel as ker
     from repro_torch.kernels.placement_score.ops import score_rows
     from repro_torch.kernels.placement_score.ref import reference_score
-    args = kernel_inputs(dev)
+    args = kernel_inputs(dev, jt=jt)
     feas_k, score_k = score_rows(*args)
     feas_p, score_p = score_rows(*args, interpret=True)
     torch.cuda.synchronize()
@@ -314,7 +324,8 @@ def check_kernel(dev):
     bound_s = max(n_bytes / HBM_BYTES_PER_S, n_flop / FP32_FLOP_PER_S)
     by = "bytes" if n_bytes / HBM_BYTES_PER_S >= n_flop / FP32_FLOP_PER_S \
         else "operations"
-    print(f"kernel check: placement_score at {N}x{R} rows, {X} line-ups per "
+    print(f"kernel check: placement_score at {label}'s {N}x{R} rows, {X} "
+          f"line-ups per "
           f"configuration, {int(feas_p.sum())} feasible: feas bitwise, "
           f"scores bitwise (max abs err {max_err}); device time per call "
           f"kernel {ms * 1e3:.3f} us, plain {plain_ms * 1e3:.3f} us, bound "
@@ -323,6 +334,17 @@ def check_kernel(dev):
           f"{wall_ms * 1e3:.3f} us, plain {wall_plain_ms * 1e3:.3f} us")
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_s * 1e3, bound_by=by)
+
+
+def check_kernel_mc_shapes(dev):
+    """The kernel check at each single-hall figure's padded N x R rows."""
+    out = {}
+    for name, (axes, kw) in mc_figures().items():
+        jt = mc_prepared(axes, kw, dev)[0]
+        N, R = jt.row_cap.shape[:2]
+        out[name] = dict(rows=f"{N}x{R}",
+                         **check_kernel(dev, jt, f"the {name} MC"))
+    return out
 
 
 SWEEP_FIELDS = ("halls_active", "deployed_mw", "p50_stranding",
@@ -366,15 +388,16 @@ def check_result(res, n_configs):
         raise AssertionError("halls closed during the lifecycle")
 
 
-def golden(dev):
+def golden(dev, policies=(3, 2)):
     from repro_torch.core.sweep import sweep
     from repro_torch.core import hierarchy
     from repro_torch.core.arrivals import EnvelopeSpec
+    from repro_torch.core.placement import POLICY_NAMES
     from repro_torch.core.sweep import SweepAxes
     axes = SweepAxes.zip(
         designs=[hierarchy.get_design("4N/3"), hierarchy.get_design("8+2")],
         envs=[EnvelopeSpec(demand_scale=GOLDEN_SCALE, gpu_scenario="high")],
-        policies=[3, 2], seeds=[3, 4])
+        policies=list(policies), seeds=[3, 4])
     t0 = time.perf_counter()
     on_cpu = sweep(axes, device="cpu")
     t1 = time.perf_counter()
@@ -382,24 +405,24 @@ def golden(dev):
     t2 = time.perf_counter()
     assert_same(on_cpu, on_card, "golden (CPU vs card)")
     check_result(on_card, len(axes))
-    print(f"golden: 2 configurations at scale {GOLDEN_SCALE}, "
+    print(f"golden: 2 configurations at scale {GOLDEN_SCALE}, policies "
+          f"{[POLICY_NAMES[p] for p in policies]}, "
           f"{on_card.event_steps} event steps: CPU {t1 - t0:.2f} s, card "
           f"{t2 - t1:.2f} s; decisions and outputs bitwise equal; halls "
           f"{list(on_card.n_halls_built)}, p90 "
           f"{[float(v) for v in on_card.p90_stranding[:, -1]]}")
 
 
-def profile_main_path(axes, dev):
-    """One run of the main path under the profiler (card activity only):
-    wall seconds, device busy seconds, the number of kernels and copies,
-    and the ten that took the most device time."""
+def profile_run(run):
+    """One call of `run` under the profiler (card activity only): wall
+    seconds, device busy seconds, the number of kernels and copies, and
+    the ten that took the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.sweep import sweep
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sweep(axes, device=dev)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy, by_name = device_activity(prof)
@@ -459,7 +482,7 @@ def main_path(dev):
           f"per event step); repeats bitwise equal; equal to "
           f"interpret=True ({plain_wall:.3f} s wall with the plain version); "
           f"launches {{'placement_score': {launches[0]}}}")
-    wall, busy, n_device, top = profile_main_path(axes, dev)
+    wall, busy, n_device, top = profile_run(lambda: sweep(axes, device=dev))
     for name, (calls, secs) in top:
         print(f"  device {secs:8.4f} s {calls:8d} calls  {name[:90]}")
     print(f"main path profiled (card activity): {wall:.3f} s wall, device "
@@ -467,6 +490,236 @@ def main_path(dev):
           f"{n_device} kernels and copies ({n_device / steps:.1f} per event "
           f"step)")
     return launches[0]
+
+# ------------------------------------------------------- single-hall MC
+
+def mc_figures():
+    """The single-hall figures of benchmarks/run.py at their own
+    arguments: {name: (MCAxes, mc_sweep keywords)}."""
+    import numpy as np
+    from repro_torch.core import hierarchy
+    from repro_torch.core.mc_sweep import MCAxes
+    get = hierarchy.get_design
+    kws = np.arange(200, 2501, 115)
+    return {
+        # Fig. 6 (benchmarks/run.py:146-162): 21 SKU-kW points x 2 designs
+        "fig6": (MCAxes.product(designs=[get("4N/3"), get("3+1")],
+                                sku_kw=[float(k) for k in kws], seeds=(6,)),
+                 dict(n_trials=4, n_events=300, harvest=False,
+                      single_sku_gpu=True)),
+        # Fig. 5 (:123-136): stranding CDFs, 2030 "high", harvest on
+        "fig5": (MCAxes.zip(designs=[get("4N/3"), get("3+1")], seeds=[5]),
+                 dict(n_trials=16, n_events=500, year=2030,
+                      scenario="high")),
+        # Fig. 7 (:174-193): the four policies x 2 designs
+        "fig7": (MCAxes.product(designs=[get("10N/8"), get("8+2")],
+                                policies=range(4), seeds=(7,)),
+                 dict(n_trials=8, n_events=900)),
+    }
+
+
+def mc_prepared(axes, kw, device):
+    """`mc_sweep`'s staged batch for a figure: (jt, ta, tb, keys,
+    policy), its (configuration x trial) axis flattened."""
+    from repro_torch.core.mc_sweep import _mc_prepare
+    return _mc_prepare(axes, kw["n_trials"], kw["n_events"],
+                       kw.get("year", 2028), kw.get("scenario", "med"), 0.6,
+                       1, 10, 0.0, kw.get("single_sku_gpu", False), None,
+                       device)
+
+
+MC_FIELDS = ("lineup_stranding", "hall_stranding", "deployed_kw",
+             "saturated", "placed_a", "placed_b", "delivered_tps",
+             "tps_per_provisioned_w", "dollars_per_tps")
+
+
+def assert_same_mc(a, b, what):
+    import numpy as np
+    for f in MC_FIELDS:
+        x, y = np.asarray(getattr(a, f)), np.asarray(getattr(b, f))
+        if x.shape != y.shape or not np.array_equal(x, y, equal_nan=True):
+            raise AssertionError(f"{what}: `{f}` differs")
+    if a.event_steps != b.event_steps:
+        raise AssertionError(f"{what}: event steps differ")
+
+
+def check_mc_result(res, kw):
+    """Shapes, finiteness and the ranges the MC metrics live in."""
+    import numpy as np
+    B, T = len(res), kw["n_trials"]
+    E = kw["n_events"]
+    E_b = max(200, E // 3)
+    shapes = dict(hall_stranding=(B, T), deployed_kw=(B, T),
+                  saturated=(B, T), placed_a=(B, T, E), placed_b=(B, T, E_b))
+    for f, shape in shapes.items():
+        if getattr(res, f).shape != shape:
+            raise AssertionError(f"MC output `{f}` has shape "
+                                 f"{getattr(res, f).shape}, not {shape}")
+    for f in ("lineup_stranding", "hall_stranding", "deployed_kw"):
+        x = getattr(res, f)
+        if not np.all(np.isfinite(x)):
+            raise AssertionError(f"MC output `{f}` is not finite")
+    for f in ("lineup_stranding", "hall_stranding"):
+        x = getattr(res, f)
+        if not np.all((x >= 0) & (x <= 1)):
+            raise AssertionError(f"`{f}` outside [0, 1]")
+    if not np.all((res.deployed_kw > 0)
+                  & (res.deployed_kw <= res.ha_capacity_kw[:, None] * 2)):
+        raise AssertionError("deployed kW outside (0, 2 x HA capacity]")
+    if res.event_steps != E + E_b:
+        raise AssertionError(f"{res.event_steps} event steps for "
+                             f"{E} + {E_b} events")
+
+
+def check_threefry(dev):
+    """Keys and draws of the random policy on the card against the CPU,
+    bitwise, at each figure's N x R for both phases (every trial drawn,
+    not only the random ones)."""
+    import torch
+    from repro_torch.core import placement as pl, prng
+    n_draws = 0
+    for name, (axes, kw) in mc_figures().items():
+        E = kw["n_events"]
+        phases = []
+        for where in ("cpu", dev):
+            jt, ta, tb, keys, _ = mc_prepared(axes, kw, where)
+            N, R = jt.row_cap.shape[:2]
+            every = torch.ones(N, dtype=torch.bool)
+            ka, kb = prng.split(keys).unbind(1)
+            phases.append((
+                keys, ka, kb, pl.random_draws(ka, every, E, R),
+                pl.random_draws(kb, every, tb.rack_kw.shape[0], R)))
+        for a, b in zip(*phases):
+            if not torch.equal(a, b.cpu()):
+                raise AssertionError(f"threefry: {name}'s keys or draws "
+                                     "differ on the card")
+        fill, refill = phases[0][3:]
+        n_draws += fill.numel() + refill.numel()
+        print(f"threefry: {name} keys [{N}, 2] and draws {list(fill.shape)} "
+              f"+ {list(refill.shape)} bitwise equal, card vs CPU")
+    return n_draws
+
+
+def mc_golden(dev):
+    """tests/test_mc_sweep.py's heterogeneous grid with two random-policy
+    configurations added, on the CPU and on the card."""
+    from repro_torch.core import hierarchy
+    from repro_torch.core.mc_sweep import MCAxes, mc_sweep
+    axes = MCAxes.zip(
+        designs=[hierarchy.get_design(n) for n in
+                 ("4N/3", "3+1", "10N/8", "4N/3", "10N/8")],
+        policies=[3, 2, 3, 0, 0], seeds=[11, 11, 13, 11, 13])
+    kw = dict(n_trials=4, n_events=150, year=2030, scenario="high")
+    t0 = time.perf_counter()
+    on_cpu = mc_sweep(axes, device="cpu", **kw)
+    t1 = time.perf_counter()
+    on_card = mc_sweep(axes, device=dev, **kw)
+    t2 = time.perf_counter()
+    assert_same_mc(on_cpu, on_card, "MC golden (CPU vs card)")
+    check_mc_result(on_card, kw)
+    print(f"MC golden: {len(axes)} configurations x {kw['n_trials']} "
+          f"trials, {on_card.event_steps} event steps: CPU {t1 - t0:.2f} s, "
+          f"card {t2 - t1:.2f} s; flags and outputs bitwise equal; mean "
+          f"line-up stranding per configuration "
+          f"{[float(on_card.lineup_stranding[i].mean()) for i in range(5)]}")
+
+
+def mc_figure_numbers(name, res):
+    """The figure's own numbers, as benchmarks/run.py derives them."""
+    import numpy as np
+    from repro_torch.core.placement import POLICY_NAMES
+    designs = sorted({d.name for d in res.axes.designs},
+                     key=[d.name for d in res.axes.designs].index)
+    if name == "fig6":
+        kws = sorted(set(res.axes.sku_kw))
+        for di, dname in enumerate(designs):
+            vals = []
+            for ki in range(len(kws)):
+                r = res.result(di * len(kws) + ki)
+                vals.append(1.0 - r["deployed_kw"].mean()
+                            / r["ha_capacity_kw"])
+            tops = ",".join(f"{k:.0f}:{v:.2f}" for k, v in zip(kws, vals)
+                            if v > 0.15)
+            print(f"  fig6.{dname}: max_strand={max(vals):.3f};"
+                  f"spikes>{{0.15}}=[{tops}]")
+    elif name == "fig5":
+        for i, dname in enumerate(designs):
+            s = res.result(i)["lineup_stranding"].flatten()
+            print(f"  fig5.mc.{dname}: p50={np.percentile(s, 50):.3f};"
+                  f"p99={np.percentile(s, 99):.3f}")
+    else:
+        means = {}
+        for pol in range(4):
+            agg = [res.result(di * 4 + pol)["lineup_stranding"].mean()
+                   for di in range(len(designs))]
+            means[POLICY_NAMES[pol]] = float(np.mean(agg))
+            print(f"  fig7.{POLICY_NAMES[pol]}: "
+                  f"mean_lineup_stranding={np.mean(agg):.4f}")
+        print(f"  fig7.best_policy: {min(means, key=means.get)}")
+
+
+def mc_main_path(dev, name, axes, kw):
+    """One single-hall figure through `mc_sweep` on the card: a warm-up,
+    two timed runs (bitwise repeats, one kernel launch per event step),
+    an interpret=True run (no launch, the same bits), a profiled run, and
+    the figure's numbers."""
+    import torch
+    from repro_torch.core.mc_sweep import mc_sweep
+    from repro_torch.kernels.placement_score.kernel import placement_score
+    t0 = time.perf_counter()
+    mc_sweep(axes, device=dev, **kw)
+    warm = time.perf_counter() - t0
+
+    runs, walls, launches = [], [], []
+    for _ in range(2):
+        placement_score.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = mc_sweep(axes, device=dev, **kw)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches.append(placement_score.launches)
+        runs.append(res)
+        if launches[-1] != res.event_steps:
+            raise AssertionError(f"{name}: {launches[-1]} placement_score "
+                                 f"launches for {res.event_steps} event "
+                                 f"steps")
+    assert_same_mc(runs[0], runs[1], f"{name} repeat")
+    check_mc_result(runs[0], kw)
+
+    placement_score.launches = 0
+    t0 = time.perf_counter()
+    plain = mc_sweep(axes, device=dev, interpret=True, **kw)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    if placement_score.launches != 0:
+        raise AssertionError(f"{name}: interpret=True launched the kernel")
+    assert_same_mc(runs[0], plain, f"{name} kernel vs interpret=True")
+
+    res, steps = runs[0], runs[0].event_steps
+    N = len(axes) * kw["n_trials"]
+    print(f"MC {name}: {len(axes)} configurations x {kw['n_trials']} trials "
+          f"(N {N}) on {res.device}, {steps} event steps; warm-up "
+          f"{warm:.3f} s; wall per run {walls[0]:.3f} s, {walls[1]:.3f} s ("
+          f"{walls[0] / steps * 1e3:.3f}, {walls[1] / steps * 1e3:.3f} ms "
+          f"per event step); repeats bitwise equal; equal to interpret=True "
+          f"({plain_wall:.3f} s wall with the plain version); launches "
+          f"{{'placement_score': {launches[0]}}}")
+    wall, busy, n_device, top = profile_run(
+        lambda: mc_sweep(axes, device=dev, **kw))
+    for kname, (calls, secs) in top[:5]:
+        print(f"  device {secs:8.4f} s {calls:8d} calls  {kname[:90]}")
+    print(f"MC {name} profiled (card activity): {wall:.3f} s wall, device "
+          f"busy {busy:.4f} s, idle share {1 - busy / wall:.3f}, {n_device} "
+          f"kernels and copies ({n_device / steps:.1f} per event step)")
+    mc_figure_numbers(name, res)
+    return launches[0]
+
+
+def mc_main_paths(dev):
+    return {name: mc_main_path(dev, name, axes, kw)
+            for name, (axes, kw) in mc_figures().items()}
+
 
 # ---------------------------------------------------------------- ssd_scan
 
@@ -1826,6 +2079,7 @@ def main():
 
     t0 = time.perf_counter()
     stats = check_kernel(dev)
+    mc_stats = check_kernel_mc_shapes(dev)
     timings["kernel check"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -1842,11 +2096,26 @@ def main():
 
     t0 = time.perf_counter()
     golden(dev)
+    golden(dev, policies=(0, 0))
     timings["golden"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     launches = main_path(dev)
     timings["main path"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    n_draws = check_threefry(dev)
+    timings["threefry check"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    mc_golden(dev)
+    timings["MC golden"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    mc_launches = mc_main_paths(dev)
+    timings["MC main paths"] = time.perf_counter() - t0
+    print(f"MC: {n_draws} Threefry draws checked; placement_score launches "
+          f"{mc_launches}")
 
     t0 = time.perf_counter()
     serve_golden(dev)
@@ -1887,7 +2156,8 @@ def main():
         dict(name="placement_score", route="cuda",
              source="src/repro_torch/csrc/placement_score.cu",
              replaces="src/repro/kernels/placement_score/kernel.py:73",
-             launches=launches, library_ms=None, **stats),
+             launches=launches, library_ms=None, **stats,
+             mc_launches=mc_launches, mc_shapes=mc_stats),
         dict(name="ssd_scan", route="cuda",
              source="src/repro_torch/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan/kernel.py:52",

@@ -9,10 +9,10 @@ lifetime, harvest fraction).
 Trace generation is host-side numpy (it parameterizes the simulations);
 the placement simulators consume the resulting arrays on device.
 
-A copy of `repro.core.arrivals`' fleet-trace half: the numpy RNG call
-sequence is unchanged, so `generate_fleet_trace` is byte-identical to the
-reference for the same seed.  The single-hall samplers come with the
-single-hall slice.
+A copy of `repro.core.arrivals`: the numpy RNG call sequences are
+unchanged, so `generate_fleet_trace`, `sample_mixed_traces` and
+`sample_mixed_trace` are byte-identical to the reference's for equal
+arguments.
 """
 from __future__ import annotations
 
@@ -390,3 +390,226 @@ def generate_fleet_trace(env: EnvelopeSpec, seed: int = 0) -> Trace:
     if env.refresh_cycle_m > 0:
         t = _snap_refresh_waves(t, env.refresh_cycle_m)
     return t.sorted_by_month()
+
+
+@dataclass
+class TraceBatch:
+    """A batch of steady-state traces: every column is `[T, E]` (trial-major).
+
+    Produced by `sample_mixed_traces` in one vectorized numpy RNG pass —
+    the batched analogue of calling `sample_mixed_trace` once per trial.
+    `trial(i)` recovers trial `i` as a plain 1-D `Trace`.
+    """
+    month: np.ndarray        # int32 [T, E]
+    class_id: np.ndarray     # int32 [T, E]
+    rack_kw: np.ndarray      # float32 [T, E]
+    n_racks: np.ndarray      # int32 [T, E]
+    is_gpu: np.ndarray       # bool [T, E]
+    is_pod: np.ndarray       # bool [T, E]
+    tier: np.ndarray         # int32 [T, E]
+    lifetime_m: np.ndarray   # int32 [T, E]
+    harvest_frac: np.ndarray  # float32 [T, E]
+
+    def __len__(self):
+        return self.month.shape[0]
+
+    def trial(self, i: int) -> Trace:
+        return Trace(**{f: getattr(self, f)[i]
+                        for f in Trace.__dataclass_fields__})
+
+    @property
+    def n_pods(self) -> np.ndarray:
+        """Per-trial pod-event count [T].  `sample_mixed_traces` emits
+        pods first within every trial, so trial `t`'s pod events are
+        exactly indices ``[0, n_pods[t])`` — the split-trace contract."""
+        return self.is_pod.sum(axis=1).astype(np.int32)
+
+    @property
+    def max_pod_racks(self) -> int:
+        """The batch's true largest pod size in racks (1 if pod-free) —
+        the static rack-scan length the split-pods path needs."""
+        pods = np.asarray(self.is_pod)
+        return int(np.asarray(self.n_racks)[pods].max()) if pods.any() else 1
+
+
+def sample_mixed_traces(n_trials: int, n_events: int, year: int = 2028,
+                        scenario: str = proj.MED, seed: int = 0,
+                        gpu_power_share: float = 0.6,
+                        pod_racks: int = 1, quantum_racks: int = 10,
+                        la_fraction: float = 0.0,
+                        sku_kw_override: float | None = None,
+                        single_sku_gpu: bool = False,
+                        phase: int = 0) -> TraceBatch:
+    """Batched `sample_mixed_trace`: `n_trials` steady-state traces in ONE
+    vectorized numpy RNG pass (no per-trial / per-event Python loop).
+
+    The single-hall Monte Carlo engine (`mc_sweep.mc_sweep`)
+    consumes this directly; host-side trace synthesis used to dominate its
+    wall time at small `n_events`.  Semantics match `sample_mixed_trace`
+    (class mix calibrated from mean event power, SKU clusters per Eq. 3,
+    N(μ,σ) lifetimes, LA tiers with probability `la_fraction`) with three
+    deliberate differences:
+
+    * the RNG is one `np.random.default_rng([seed, trial-batch salt])`
+      stream drawing `[T, E]` grids, so a batch is bit-for-bit
+      reproducible for equal arguments but individual trials are NOT
+      bitwise-identical to per-trial `sample_mixed_trace` calls (the
+      distributions are identical — equivalence is statistical);
+    * the Fig. 6 single-SKU mode is a *generator argument*
+      (`single_sku_gpu` + `sku_kw_override`) instead of post-hoc in-place
+      mutation: `single_sku_gpu=True` emits only GPU-class events, and
+      `sku_kw_override` replaces every GPU rack power;
+    * with `pod_racks > 1` every trial's events are reordered **pods
+      first** (stable, so relative order within pods and within clusters
+      is preserved) — the same per-window contract the fleet trace keeps
+      per month, which lets the split-pods scan run a pod window then a
+      cluster window without reordering anything at placement time.
+      `TraceBatch.n_pods` / `max_pod_racks` expose the window geometry.
+
+    `phase` salts an independent stream per (seed, phase) pair — the MC
+    engine draws fill traces at phase 0 and refill traces at phase 1, so
+    a configuration seeded `s` never shares a stream with configuration
+    `s+1` (phase 0 keeps the historical `[seed, salt]` stream).
+    """
+    salt = ([int(seed), 0x6D63] if phase == 0
+            else [int(seed), int(phase), 0x6D63])      # 'mc' trial salt
+    rng = np.random.default_rng(salt)
+    T, E = int(n_trials), int(n_events)
+    gpu_n = pod_racks if pod_racks > 1 else 1
+    gpu_kw = proj.gpu_rack_kw(year, scenario, pod_scale=pod_racks > 1)
+
+    if single_sku_gpu:
+        cid = np.full((T, E), CLASS_GPU, np.int32)
+    else:
+        shares = {CLASS_GPU: gpu_power_share,
+                  CLASS_COMPUTE: (1 - gpu_power_share) * 0.7,
+                  CLASS_STORAGE: (1 - gpu_power_share) * 0.3}
+        # power shares → event probabilities via mean event power, with the
+        # same 64-draw calibration `sample_mixed_trace` uses (vectorized)
+        mean_event_kw = {CLASS_GPU: gpu_kw * gpu_n}
+        for cls, pmax_fn, skus in (
+                (CLASS_COMPUTE, proj.compute_rack_kw, COMPUTE_SKUS),
+                (CLASS_STORAGE, proj.storage_rack_kw, STORAGE_SKUS)):
+            alphas = np.array([a for a, _ in skus])
+            probs = np.array([p for _, p in skus])
+            draws = pmax_fn(year, scenario) * rng.choice(alphas, size=64,
+                                                         p=probs)
+            mean_event_kw[cls] = draws.mean() * quantum_racks
+        p = np.array([shares[c] / mean_event_kw[c]
+                      for c in (CLASS_GPU, CLASS_COMPUTE, CLASS_STORAGE)])
+        cid = rng.choice(np.array([CLASS_GPU, CLASS_COMPUTE, CLASS_STORAGE],
+                                  np.int32), size=(T, E),
+                         p=p / p.sum()).astype(np.int32)
+    is_gpu = cid == CLASS_GPU
+
+    # per-SKU rack power (Eq. 3), one choice grid per non-GPU class
+    def sku_kw(pmax, skus):
+        alphas = np.array([a for a, _ in skus])
+        probs = np.array([p for _, p in skus])
+        return pmax * rng.choice(alphas, size=(T, E), p=probs)
+
+    rack_kw = np.where(
+        is_gpu, gpu_kw,
+        np.where(cid == CLASS_COMPUTE,
+                 sku_kw(proj.compute_rack_kw(year, scenario), COMPUTE_SKUS),
+                 sku_kw(proj.storage_rack_kw(year, scenario), STORAGE_SKUS)))
+    if sku_kw_override is not None:
+        rack_kw = np.where(is_gpu, float(sku_kw_override), rack_kw)
+
+    tier = np.where(rng.random((T, E)) < la_fraction, TIER_LA, TIER_HA)
+    mu = np.array([LIFETIME[c][0] for c in range(3)])[cid]
+    sd = np.array([LIFETIME[c][1] for c in range(3)])[cid]
+    lifetime_m = np.maximum(12, np.round(rng.normal(mu, sd) * 12.0))
+
+    if pod_racks > 1:
+        # pods-first per trial (stable — in-group order preserved): the
+        # split-trace contract; a pure reorder, so per-event marginals
+        # and the realized power mix are untouched
+        order = np.argsort(~is_gpu, axis=1, kind="stable")
+        take = lambda a: np.take_along_axis(a, order, axis=1)
+        cid, rack_kw, tier, lifetime_m = map(
+            take, (cid, rack_kw, tier, lifetime_m))
+        is_gpu = cid == CLASS_GPU
+
+    return TraceBatch(
+        month=np.zeros((T, E), np.int32),
+        class_id=cid,
+        rack_kw=rack_kw.astype(np.float32),
+        n_racks=np.where(is_gpu, gpu_n, quantum_racks).astype(np.int32),
+        is_gpu=is_gpu,
+        is_pod=is_gpu & (pod_racks > 1),
+        tier=tier.astype(np.int32),
+        lifetime_m=lifetime_m.astype(np.int32),
+        harvest_frac=np.array([HARVEST_FRAC[c]
+                               for c in range(3)])[cid].astype(np.float32),
+    )
+
+
+def sample_mixed_trace(n_events: int, year: int = 2028,
+                       scenario: str = proj.MED, seed: int = 0,
+                       gpu_power_share: float = 0.6,
+                       pod_racks: int = 1, quantum_racks: int = 10,
+                       la_fraction: float = 0.0) -> Trace:
+    """Steady-state mixed-SKU stream for single-hall Monte Carlo (§4.4).
+
+    Unlike `generate_fleet_trace` there is no buildout calendar: all
+    `n_events` arrive at month 0 (the saturation simulator places them
+    until the hall fills).  Event *class* probabilities are derived from
+    the target power shares — GPU gets `gpu_power_share` of added power,
+    the remainder splits 0.7/0.3 between general compute and storage —
+    by dividing each share by the class's empirical mean event power
+    (64 calibration draws per class), so the realized power mix matches
+    the requested split.  `rack_kw` is per-rack kilowatts; an event's
+    power is `rack_kw * n_racks` with `n_racks = pod_racks` for GPU pods
+    (1 if rack-scale) and `quantum_racks` otherwise.  `seed` drives one
+    `np.random.default_rng` stream through calibration and sampling, so
+    equal `(n_events, year, scenario, seed, …)` calls are bit-for-bit
+    reproducible; class ids are `resources.CLASS_*`, tiers
+    `resources.TIER_HA/TIER_LA` (LA with probability `la_fraction`).
+    """
+    rng = np.random.default_rng(seed)
+    env = EnvelopeSpec(gpu_scenario=scenario, nongpu_scenario=scenario,
+                       pod_racks=pod_racks, quantum_racks=quantum_racks,
+                       la_fraction=la_fraction)
+    shares = {CLASS_GPU: gpu_power_share,
+              CLASS_COMPUTE: (1 - gpu_power_share) * 0.7,
+              CLASS_STORAGE: (1 - gpu_power_share) * 0.3}
+    # convert power shares → event probabilities via mean event power
+    mean_event_kw = {}
+    for cid in shares:
+        kws = [_rack_kw_for(env, cid, year, rng) for _ in range(64)]
+        n = pod_racks if (cid == CLASS_GPU and pod_racks > 1) else (
+            1 if cid == CLASS_GPU else quantum_racks)
+        mean_event_kw[cid] = np.mean(kws) * n
+    p = np.array([shares[c] / mean_event_kw[c]
+                  for c in (CLASS_GPU, CLASS_COMPUTE, CLASS_STORAGE)])
+    p = p / p.sum()
+
+    recs = {f: [] for f in Trace.__dataclass_fields__}
+    for i in range(n_events):
+        cid = int(rng.choice([CLASS_GPU, CLASS_COMPUTE, CLASS_STORAGE], p=p))
+        kw = _rack_kw_for(env, cid, year, rng)
+        if cid == CLASS_GPU:
+            n, is_pod = (pod_racks, pod_racks > 1) if pod_racks > 1 else (1, False)
+        else:
+            n, is_pod = quantum_racks, False
+        mu, sd = LIFETIME[cid]
+        recs["month"].append(0)
+        recs["class_id"].append(cid)
+        recs["rack_kw"].append(kw)
+        recs["n_racks"].append(n)
+        recs["is_gpu"].append(cid == CLASS_GPU)
+        recs["is_pod"].append(is_pod)
+        recs["tier"].append(TIER_LA if rng.random() < la_fraction else TIER_HA)
+        recs["lifetime_m"].append(max(12, int(round(rng.normal(mu, sd) * 12))))
+        recs["harvest_frac"].append(HARVEST_FRAC[cid])
+
+    t = Trace(**{f: np.asarray(v) for f, v in recs.items()})
+    t.month = t.month.astype(np.int32)
+    t.class_id = t.class_id.astype(np.int32)
+    t.rack_kw = t.rack_kw.astype(np.float32)
+    t.n_racks = t.n_racks.astype(np.int32)
+    t.tier = t.tier.astype(np.int32)
+    t.lifetime_m = t.lifetime_m.astype(np.int32)
+    t.harvest_frac = t.harvest_frac.astype(np.float32)
+    return t

@@ -27,7 +27,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from . import cost, placement as pl
+from . import cost, placement as pl, prng
 from .arrivals import EnvelopeSpec, Trace, generate_fleet_trace
 from .hierarchy import DesignSpec, build_topology
 from .placement import DEFAULT_POLICY, Deployment, HallState, Topology
@@ -208,7 +208,7 @@ _NEW_HALL_BIAS = 1e6   # keeps placements in existing halls when feasible
 
 def simulate_lifecycle(jt: Topology, ft: FleetTrace, idx, valid, policy,
                        h_cap, n_real, *, harvest: bool, mature_months: int,
-                       with_pods: bool = False,
+                       seeds=None, with_pods: bool = False,
                        legacy_pod_cond: bool = False,
                        exact_quantiles: bool = True,
                        interpret: bool = False) -> SimOutputs:
@@ -217,7 +217,13 @@ def simulate_lifecycle(jt: Topology, ft: FleetTrace, idx, valid, policy,
     `idx`/`valid` ([N, M, e_max], host arrays) window each month's
     events; `policy` comes from `placement.policy_tensor`; `h_cap` ([N])
     caps hall opening per configuration; `n_real` ([N]) counts the real
-    (unpadded) events.  Each month runs decommission, harvest, then every
+    (unpadded) events; `seeds` ([N] ints) key the random policy's draws
+    and are needed only where a configuration runs it: configuration n
+    keys by ``PRNGKey(int32(seeds[n]) + 1)``, month m by ``fold_in(key,
+    m)``, and the event in slot i of the month's window by ``fold_in(
+    month key, i)``, drawing one score per row of the whole padded fleet,
+    as `repro` does.  A month's draws are made in one batched pass before
+    its event loop.  Each month runs decommission, harvest, then every
     event of its window with one biased attempt over halls `< n + 1`
     (`repro`'s pod-free path: the bias keeps a cluster in the existing
     halls whenever one of their rows fits, so one attempt equals
@@ -232,6 +238,14 @@ def simulate_lifecycle(jt: Topology, ft: FleetTrace, idx, valid, policy,
     dev = jt.row_cap.device
     host = torch.device("cpu")
     N, H = jt.hall_liq_cap.shape
+    R = jt.row_cap.shape[1]
+    random = (policy == pl.POLICY_RANDOM).cpu()
+    keys = None
+    if random.any():
+        if seeds is None:
+            raise ValueError("the random policy needs the configurations' "
+                             "seeds")
+        keys = prng.prng_key([int(s) + 1 for s in seeds], dev)
     idx = torch.as_tensor(np.asarray(idx), dtype=torch.int64)
     valid = torch.as_tensor(np.asarray(valid), dtype=torch.bool)
     M, e_max = idx.shape[1], idx.shape[2]
@@ -291,6 +305,8 @@ def simulate_lifecycle(jt: Topology, ft: FleetTrace, idx, valid, policy,
             harvested = harvested | hv
 
         # ---- 3. place this month's arrivals ----
+        draws = (None if keys is None else
+                 pl.random_draws(prng.fold_in(keys, m), random, e_max, R))
         ran, rows_m = [], []
         for i in range(e_max):
             if not bool(step_live[m, i].any()):
@@ -303,7 +319,9 @@ def simulate_lifecycle(jt: Topology, ft: FleetTrace, idx, valid, policy,
             state, ok, row = pl.place_in_row(
                 jt, state, dep, dep.n_racks, policy,
                 row_hall < n_try[:, None], score_bias=bias,
-                live=step_live_dev[m, i], interpret=interpret)
+                live=step_live_dev[m, i],
+                rand=None if draws is None else draws[i],
+                interpret=interpret)
             hall = row_hall.gather(1, row.clamp(min=0)[:, None])[:, 0]
             n_new = torch.where(ok & (hall < n_active), n_active, n_try)
             n_active = torch.where(step_live_dev[m, i], n_new, n_active)
@@ -399,7 +417,7 @@ def run_fleet(cfg: FleetConfig, trace: Trace | None = None,
     idx, valid = _event_windows(trace, months, False)
     out = simulate_lifecycle(
         jt, ft, idx[None], valid[None], pl.policy_tensor([cfg.policy], dev),
-        [H], [len(trace)], harvest=cfg.harvest,
+        [H], [len(trace)], harvest=cfg.harvest, seeds=[cfg.seed],
         mature_months=cfg.mature_months, exact_quantiles=exact_quantiles,
         interpret=interpret)
     one = type(out)(*(x[0].cpu().numpy() if torch.is_tensor(x) else x

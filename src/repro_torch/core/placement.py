@@ -9,9 +9,9 @@ all N·R rows in one launch.
 Feasibility (Eq. 26): a placement is admitted iff the row (power, air,
 liquid, tiles), its feeding line-ups (power under redundancy) and the
 hall (liquid plant) all retain capacity.  Policies (paper §4.2):
-round-robin, min-waste and variance-minimisation; the random policy reads
-`jax.random`'s Threefry draws and waits for their bit-exact port
-(ROADMAP queue 1, item 3).
+random, round-robin, min-waste and variance-minimisation.  The random
+policy scores rows by the Threefry draws of `prng.uniform`, which its
+callers compute ahead of their event loops and pass in.
 
 Every float32 operation is the reference's, in its order, so chosen rows,
 `ok` flags and state leaves agree with `repro` bitwise.  State updates
@@ -26,6 +26,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from . import prng
 from .resources import LIQ, N_RES, POWER, TIER_HA, rack_demand
 from ..kernels.placement_score.ops import score_rows
 
@@ -125,20 +126,32 @@ def init_state(jt: Topology) -> HallState:
 
 
 def policy_tensor(policies, device) -> torch.Tensor:
-    """Per-configuration policy ids as a device tensor, checked on the host.
-
-    The random policy draws `jax.random` Threefry bits that the port does
-    not reproduce yet, so it raises instead of scoring silently."""
+    """Per-configuration policy ids as a device tensor, checked on the
+    host: an id outside [0, 4) raises `ValueError`."""
     ids = [int(p) for p in policies]
     for i, p in enumerate(ids):
         if not 0 <= p < len(POLICY_NAMES):
             raise ValueError(f"policies[{i}] = {p} outside "
                              f"[0, {len(POLICY_NAMES)}); have {POLICY_NAMES}")
-        if p == POLICY_RANDOM:
-            raise NotImplementedError(
-                "the random placement policy needs the bit-exact port of "
-                "jax.random's Threefry-2x32 (ROADMAP queue 1, item 3)")
     return torch.tensor(ids, dtype=torch.int64, device=device)
+
+
+def random_draws(keys: torch.Tensor, random: torch.Tensor, n_steps: int,
+                 n_rows: int):
+    """The random policy's scores for `n_steps` event steps: ``[n_steps,
+    N, n_rows]``, step i of configuration n being ``uniform(fold_in(
+    keys[n], i), n_rows)``, as `repro` draws them per event.  Only the
+    configurations marked in `random` ([N] bool, on the host) are drawn,
+    in one batched pass; the others' rows stay 0, which their policies
+    never read.  None when no configuration is random."""
+    if not bool(random.any()):
+        return None
+    idx = torch.nonzero(random).flatten().to(keys.device)
+    steps = torch.arange(n_steps, device=keys.device)[:, None]
+    out = torch.zeros((n_steps, keys.shape[0], n_rows), dtype=torch.float32,
+                      device=keys.device)
+    out[:, idx] = prng.uniform(prng.fold_in(keys[idx][None], steps), n_rows)
+    return out
 
 
 def _bcast(mask, x):
@@ -189,11 +202,13 @@ def _kernel_feas_scores(jt: Topology, state: HallState, dep: Deployment,
 
 
 def row_scores(jt: Topology, state: HallState, dep: Deployment, n_in_row,
-               policy, var) -> torch.Tensor:
+               policy, var, rand=None) -> torch.Tensor:
     """[N, R] placement score (lower is better) under each configuration's
     policy (`policy_tensor`).  `var` is the kernel's variance column; it is
     `BIG` at kernel-infeasible rows, which the caller's feasibility mask
-    sends to `BIG` anyway."""
+    sends to `BIG` anyway.  `rand` ([N, R], `prng.uniform` of this step's
+    keys) is the random policy's column: pass it whenever a configuration
+    runs that policy, whose rows would otherwise score `var`."""
     P = n_in_row.float() * dep.rack_kw
     R = jt.row_cap.shape[1]
     cap = jt.row_cap[..., POWER]
@@ -208,6 +223,8 @@ def row_scores(jt: Topology, state: HallState, dep: Deployment, n_in_row,
     pol = policy[:, None]
     score = torch.where(pol == POLICY_ROUND_ROBIN, rr,
                         torch.where(pol == POLICY_MIN_WASTE, waste, var))
+    if rand is not None:
+        score = torch.where(pol == POLICY_RANDOM, rand, score)
     return base + score
 
 
@@ -240,7 +257,7 @@ def _apply_to_row(jt: Topology, state: HallState, dep: Deployment,
 
 
 def place_in_row(jt: Topology, state: HallState, dep: Deployment, n_in_row,
-                 policy, row_active, score_bias=None, live=None,
+                 policy, row_active, score_bias=None, live=None, rand=None,
                  interpret: bool = False):
     """Place `n_in_row` racks ([N]) into the best feasible active row of
     every configuration.  Returns (state', ok [N], row [N], -1 where not
@@ -251,7 +268,8 @@ def place_in_row(jt: Topology, state: HallState, dep: Deployment, n_in_row,
     fleet's keep-to-existing-halls rule.  `live` ([N] bool, default all)
     marks the configurations that place at all this step: the others keep
     their state and report ok = False, as the reference's masked scan
-    steps do.  One placement-score launch computes the line-up power
+    steps do.  `rand` ([N, R]) is the random policy's draws (see
+    `row_scores`).  One placement-score launch computes the line-up power
     condition and the variance score for all N·R rows.
 
     Ties between equal scores go to the lowest row index, as
@@ -259,7 +277,7 @@ def place_in_row(jt: Topology, state: HallState, dep: Deployment, n_in_row,
     dem = _demand(dep, n_in_row)
     kfeas, var = _kernel_feas_scores(jt, state, dep, dem.P, interpret)
     feas = _row_fits(jt, state, dep, dem) & kfeas & row_active
-    score = row_scores(jt, state, dep, n_in_row, policy, var)
+    score = row_scores(jt, state, dep, n_in_row, policy, var, rand)
     if score_bias is not None:
         score = score + score_bias
     slot = torch.argmin(torch.where(feas, score, _BIG), dim=1)
@@ -272,13 +290,13 @@ def place_in_row(jt: Topology, state: HallState, dep: Deployment, n_in_row,
 
 def place_cluster_in_row(jt: Topology, state: HallState, dep: Deployment,
                          policy, row_active, score_bias=None, live=None,
-                         interpret: bool = False):
+                         rand=None, interpret: bool = False):
     """`place_in_row` for a whole single-row cluster, with the result in
     the reference's `[N, MAX_POD_RACKS]` rows/counts registry convention.
     Returns (state', ok, rows, counts, row)."""
     st, ok, row = place_in_row(jt, state, dep, dep.n_racks, policy,
                                row_active, score_bias=score_bias, live=live,
-                               interpret=interpret)
+                               rand=rand, interpret=interpret)
     N = row.shape[0]
     rows = torch.full((N, MAX_POD_RACKS), -1, dtype=torch.int64,
                       device=row.device)

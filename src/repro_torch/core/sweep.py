@@ -30,7 +30,7 @@ from .fleet import (_PODS_TODO, FleetResult, FleetTrace, _auto_halls,
                     _event_windows, _month_e_max, make_fleet_result,
                     simulate_lifecycle)
 from .hierarchy import DesignSpec, SweepValidationError, build_topology
-from .placement import DEFAULT_POLICY, POLICY_NAMES, POLICY_RANDOM
+from .placement import DEFAULT_POLICY, POLICY_NAMES
 from ..device import resolve_device
 
 
@@ -97,10 +97,8 @@ class SweepAxes:
                          [c[1][1] for c in combos])
 
     def validate(self) -> "SweepAxes":
-        """Raise before any device work: `SweepValidationError` on an
-        invalid design, envelope, policy id or mixed horizons, and
-        `NotImplementedError` for the random policy, whose Threefry draws
-        are not ported yet (ROADMAP queue 1, item 3)."""
+        """Raise `SweepValidationError` before any device work: on an
+        invalid design, envelope, policy id or mixed horizons."""
         if len(self) == 0:
             raise SweepValidationError(
                 "designs", "empty sweep: zero configurations")
@@ -118,11 +116,6 @@ class SweepAxes:
                 raise SweepValidationError(
                     "policies", f"policies[{i}] = {p} outside "
                     f"[0, {len(POLICY_NAMES)}); have {POLICY_NAMES}")
-            if p == POLICY_RANDOM:
-                raise NotImplementedError(
-                    f"policies[{i}] is the random policy, which needs the "
-                    "bit-exact port of jax.random's Threefry-2x32 (ROADMAP "
-                    "queue 1, item 3)")
         horizons = {(e.start_year, e.end_year) for e in self.envs}
         if len(horizons) > 1:
             raise SweepValidationError(
@@ -368,7 +361,8 @@ def sweep(axes: SweepAxes, harvest: bool = True, mature_months: int = 12,
     out = simulate_lifecycle(
         jt, ft, idx, valid, pl.policy_tensor(axes.policies, dev), h_caps,
         n_real, harvest=harvest, mature_months=mature_months,
-        exact_quantiles=exact_quantiles, interpret=interpret)
+        seeds=axes.seeds, exact_quantiles=exact_quantiles,
+        interpret=interpret)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     return _finalize(out, axes, months, topos, X_pad, models=models,
                      metric_year=metric_year, device=name)

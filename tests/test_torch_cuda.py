@@ -13,7 +13,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import arrivals, hierarchy  # noqa: E402
+from repro_torch.core import arrivals, hierarchy, prng  # noqa: E402
+from repro_torch.core.mc_sweep import MCAxes, mc_sweep  # noqa: E402
 from repro_torch.core.sweep import SweepAxes, sweep  # noqa: E402
 from repro_torch.kernels.placement_score import kernel, ops  # noqa: E402
 
@@ -73,6 +74,36 @@ def test_sweep_on_the_card_equals_the_cpu(cuda):
     for f in ("halls_active", "deployed_mw", "p90_stranding", "reg_rows",
               "final_lineup_stranding", "effective_dpm"):
         np.testing.assert_array_equal(getattr(on_card, f), getattr(on_cpu, f))
+
+
+def test_threefry_on_the_card_equals_the_cpu(cuda):
+    """Keys and draws at Fig. 7's shapes: 8 trials of 8 configurations,
+    900 events, 100 rows."""
+    def draws(device):
+        keys = prng.split(prng.prng_key(list(range(8)), device), 8)
+        keys = keys.reshape(-1, 2)
+        ev = prng.fold_in(prng.split(keys)[:, 0][None],
+                          torch.arange(900, device=device)[:, None])
+        return keys, ev, prng.uniform(ev, 100)
+
+    for a, b in zip(draws("cpu"), draws(cuda)):
+        assert torch.equal(a, b.cpu())
+
+
+def test_mc_sweep_on_the_card_equals_the_cpu(cuda):
+    axes = MCAxes.product(designs=[hierarchy.get_design("10N/8"),
+                                   hierarchy.get_design("3+1")],
+                          policies=range(4), seeds=(7,))
+    kw = dict(n_trials=2, n_events=150, year=2030, scenario="high")
+    on_cpu, on_card = (mc_sweep(axes, device="cpu", **kw),
+                       mc_sweep(axes, device=cuda, **kw))
+    before = kernel.placement_score.launches
+    again = mc_sweep(axes, device=cuda, **kw)
+    assert kernel.placement_score.launches - before == on_card.event_steps
+    for f in ("placed_a", "placed_b", "saturated", "lineup_stranding",
+              "hall_stranding", "deployed_kw", "delivered_tps"):
+        np.testing.assert_array_equal(getattr(on_card, f), getattr(on_cpu, f))
+        np.testing.assert_array_equal(getattr(again, f), getattr(on_cpu, f))
 
 
 # ---- ssd_scan (Mamba2 SSD intra-chunk kernel) ----

@@ -19,6 +19,7 @@ from repro.core import placement as r_pl  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import hierarchy as t_hier  # noqa: E402
 from repro_torch.core import placement as t_pl  # noqa: E402
+from repro_torch.core import prng  # noqa: E402
 
 DESIGNS = ("4N/3", "3+1", "10N/8", "8+2")       # both design families
 POLICIES = (r_pl.POLICY_ROUND_ROBIN, r_pl.POLICY_MIN_WASTE,
@@ -222,10 +223,62 @@ def test_release_bulk_bitwise(name):
 
 
 def test_random_policy_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Threefry"):
-        t_pl.policy_tensor([r_pl.POLICY_RANDOM], "cpu")
-    with pytest.raises(ValueError):
-        t_pl.policy_tensor([7], "cpu")
+    """`policy_tensor` takes every id in [0, 4), the random policy's
+    included, and rejects the others."""
+    assert t_pl.policy_tensor([0, 1, 2, 3], "cpu").tolist() == [0, 1, 2, 3]
+    for bad in (7, 4, -1):
+        with pytest.raises(ValueError):
+            t_pl.policy_tensor([r_pl.POLICY_RANDOM, bad], "cpu")
+
+
+@pytest.mark.parametrize("seed", [0, 5, 61])
+def test_row_scores_random_column_matches_repro(seed):
+    """The random policy's scores, `uniform(key, (R,))` under `repro`'s
+    `jnp.select`, plus the LD-row preference, at every row."""
+    topo, jt, tt = topologies("10N/8")
+    steps = arrivals(seed, 6)
+    r_state = run_reference(jt, topo, steps, r_pl.POLICY_VAR_MIN)[-1][0]
+    t_state = convert.state_from_numpy(
+        {k: np.asarray(v) for k, v in r_state._asdict().items()}, "cpu")
+    R = topo.row_cap.shape[0]
+    for t, item in enumerate(arrivals(seed + 100, 4)):
+        key = jax.random.fold_in(jax.random.PRNGKey(seed), t)
+        dep = r_pl.Deployment.make(*item)
+        want = r_pl.row_scores(jt, r_state, dep, dep.n_racks,
+                               r_pl.POLICY_RANDOM, key)
+        d = t_dep([item])
+        dem = t_pl._demand(d, d.n_racks)
+        _, var = t_pl._kernel_feas_scores(tt, t_state, d, dem.P)
+        rand = prng.uniform(prng.fold_in(prng.prng_key(seed), t), R)[None]
+        got = t_pl.row_scores(tt, t_state, d, d.n_racks,
+                              t_pl.policy_tensor([0], "cpu"), var, rand)
+        assert np.asarray(want).tobytes() == got[0].numpy().tobytes(), t
+
+
+@pytest.mark.parametrize("name", DESIGNS)
+def test_random_policy_places_bitwise(name):
+    """Step t keys by ``fold_in(PRNGKey(3), t)`` in both packages."""
+    topo, jt, tt = topologies(name)
+    R = topo.row_cap.shape[0]
+    r_state, state = r_pl.init_state(topo), t_pl.init_state(tt)
+    pol = t_pl.policy_tensor([r_pl.POLICY_RANDOM], "cpu")
+    hall = np.asarray(topo.row_hall)
+    n_ok = 0
+    for t, item in enumerate(arrivals(DESIGNS.index(name) + 50, STEPS)):
+        active = hall < 1 + (t >= STEPS // 2)
+        dep = r_pl.Deployment.make(*item)
+        r_state, r_ok, r_row = r_pl.place_in_row(
+            jt, r_state, dep, dep.n_racks, r_pl.POLICY_RANDOM,
+            jax.random.fold_in(jax.random.PRNGKey(3), t), jnp.asarray(active))
+        d = t_dep([item])
+        rand = prng.uniform(prng.fold_in(prng.prng_key(3), t), R)[None]
+        state, ok, row = t_pl.place_in_row(
+            tt, state, d, d.n_racks, pol, torch.from_numpy(active)[None],
+            rand=rand)
+        assert (bool(ok[0]), int(row[0])) == (bool(r_ok), int(r_row)), t
+        assert_state_equal(r_state, state)
+        n_ok += bool(r_ok)
+    assert 0 < n_ok
 
 
 def test_convert_round_trip_places_like_the_reference():

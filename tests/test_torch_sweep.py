@@ -98,11 +98,11 @@ def test_float_outputs_rtol(grids):
         (p.n_halls_built, len(p.final_lineup_stranding))
 
 
-def reference_registry(monkeypatch):
+def reference_registry(monkeypatch, ax=None):
     """Every (row, ok) `repro`'s lifecycle decides, per configuration,
     recorded with an ordered debug callback from inside its jitted scan,
     mapped back to event ids through its month windows."""
-    ax = axes(r_hier, r_arr, r_sweep)
+    ax = ax or axes(r_hier, r_arr, r_sweep)
     args, *_ = r_sweep._prepare(ax, 0, None)
     idx, valid = np.asarray(args[2]), np.asarray(args[3])
     calls = []
@@ -142,13 +142,55 @@ def test_registry_rows_bitwise(grids, monkeypatch):
     assert placed.sum() > 100
 
 
+def random_axes(hier, arr, sweep_mod):
+    """The card golden's two configurations under the random policy."""
+    return sweep_mod.SweepAxes.zip(
+        [hier.get_design("4N/3"), hier.get_design("8+2")],
+        [arr.EnvelopeSpec(demand_scale=SCALE, gpu_scenario="high")],
+        policies=[0, 0], seeds=[3, 4])
+
+
+def test_random_policy_sweep_matches_repro(monkeypatch):
+    """Keys ``PRNGKey(int32(seed) + 1)``, ``fold_in`` by month and by
+    event slot, one draw per row of the whole padded fleet: every chosen
+    row bitwise."""
+    ref = r_sweep.sweep(random_axes(r_hier, r_arr, r_sweep))
+    port = t_sweep.sweep(random_axes(t_hier, t_arr, t_sweep), device="cpu")
+    rows, placed = reference_registry(monkeypatch,
+                                      random_axes(r_hier, r_arr, r_sweep))
+    np.testing.assert_array_equal(port.reg_rows, rows)
+    np.testing.assert_array_equal(port.reg_rows >= 0, placed)
+    np.testing.assert_array_equal(port.n_halls_built, ref.n_halls_built)
+    np.testing.assert_array_equal(port.halls_active, ref.halls_active)
+    np.testing.assert_array_equal(port.final_hall_stranding,
+                                  ref.final_hall_stranding)
+    for f in ("deployed_mw", "p50_stranding", "p90_stranding",
+              "final_lineup_stranding", "effective_dpm", "delivered_tps"):
+        np.testing.assert_allclose(getattr(port, f), getattr(ref, f),
+                                   rtol=1e-6, atol=0, err_msg=f)
+    # not the default policy's run under another name
+    var_min = t_sweep.sweep(t_sweep.SweepAxes.zip(
+        random_axes(t_hier, t_arr, t_sweep).designs,
+        [t_arr.EnvelopeSpec(demand_scale=SCALE, gpu_scenario="high")],
+        seeds=[3, 4]), device="cpu")
+    assert not np.array_equal(var_min.reg_rows, port.reg_rows)
+
+
 def test_run_fleet_matches_repro():
+    check_run_fleet(policy=1)
+
+
+def test_run_fleet_random_policy_matches_repro():
+    check_run_fleet(policy=0)
+
+
+def check_run_fleet(policy):
     kw = dict(demand_scale=SCALE, gpu_scenario="high", la_fraction=0.2)
     a = r_fleet.run_fleet(r_fleet.FleetConfig(
-        r_hier.get_design("3+1"), r_arr.EnvelopeSpec(**kw), policy=1,
+        r_hier.get_design("3+1"), r_arr.EnvelopeSpec(**kw), policy=policy,
         seed=5))
     b = t_fleet.run_fleet(t_fleet.FleetConfig(
-        t_hier.get_design("3+1"), t_arr.EnvelopeSpec(**kw), policy=1,
+        t_hier.get_design("3+1"), t_arr.EnvelopeSpec(**kw), policy=policy,
         seed=5), device="cpu")
     assert a.n_halls_built == b.n_halls_built
     np.testing.assert_array_equal(a.halls_active, b.halls_active)
@@ -161,9 +203,6 @@ def test_run_fleet_matches_repro():
 def test_unported_paths_raise():
     env = t_arr.EnvelopeSpec(demand_scale=SCALE)
     design = t_hier.get_design("4N/3")
-    with pytest.raises(NotImplementedError, match="Threefry"):
-        t_sweep.sweep(t_sweep.SweepAxes.zip([design], [env], policies=[0]),
-                      device="cpu")
     with pytest.raises(NotImplementedError, match="items 4 and 6"):
         t_sweep.sweep(t_sweep.SweepAxes.zip(
             [design], [t_arr.EnvelopeSpec(demand_scale=SCALE, pod_racks=4)]),
