@@ -22,6 +22,12 @@ read just after:
   `repro_torch.core.mc_sweep.mc_sweep`, each held to its interpret=True
   run; they launch `placement_score` once per event step, and print the
   figures' numbers;
+* multi-row GPU pods: the kernel at the HD-compacted pod views; a pod
+  fleet golden (four policies) card against CPU, split and legacy; Fig.
+  17's pod group (10N/8 and 8+2 x pods of 3, 5 and 7, HIGH, scale 0.04)
+  through `sweep` with exact and with streaming quantiles (one launch
+  per cluster and per pod rack); `pod_sweep_speedup`'s and
+  `mc_pod_speedup`'s grids, split against `legacy_pod_cond=True`;
 * Mamba2-2.7B serving: `smoke_config()` served on the CPU and on the card
   (float32), then the full-width model (64 layers, d_model 2560, bf16
   weights drawn from a generator seeded with 0) behind `ServeEngine`
@@ -259,7 +265,7 @@ def kernel_inputs(dev, seed=0, jt=None):
     from repro_torch.core.sweep import _prepare
     if jt is None:
         axes, _ = fleet_axes(MAIN_SCALE)
-        jt = _prepare(axes, 0, None, dev)[0]
+        jt = _prepare(axes, 0, None, dev).jt
     N, R, _ = jt.row_cap.shape
     X = jt.lineup_cap.shape[1]
     rng = np.random.default_rng(seed)
@@ -351,7 +357,7 @@ SWEEP_FIELDS = ("halls_active", "deployed_mw", "p50_stranding",
                 "p90_stranding", "final_hall_stranding",
                 "final_lineup_stranding", "n_halls_built",
                 "final_deployed_mw", "placed_fraction", "effective_dpm",
-                "delivered_tps", "act_month", "reg_rows")
+                "delivered_tps", "act_month", "reg_rows", "reg_counts")
 
 
 def assert_same(a, b, what):
@@ -360,7 +366,7 @@ def assert_same(a, b, what):
         x, y = np.asarray(getattr(a, f)), np.asarray(getattr(b, f))
         if x.shape != y.shape or not np.array_equal(x, y, equal_nan=True):
             raise AssertionError(f"{what}: `{f}` differs")
-    if a.event_steps != b.event_steps:
+    if (a.event_steps, a.pod_steps) != (b.event_steps, b.pod_steps):
         raise AssertionError(f"{what}: event steps differ")
 
 
@@ -524,13 +530,14 @@ def mc_prepared(axes, kw, device):
     from repro_torch.core.mc_sweep import _mc_prepare
     return _mc_prepare(axes, kw["n_trials"], kw["n_events"],
                        kw.get("year", 2028), kw.get("scenario", "med"), 0.6,
-                       1, 10, 0.0, kw.get("single_sku_gpu", False), None,
-                       device)
+                       kw.get("pod_racks", 1), 10, 0.0,
+                       kw.get("single_sku_gpu", False), None, device)[0]
 
 
 MC_FIELDS = ("lineup_stranding", "hall_stranding", "deployed_kw",
              "saturated", "placed_a", "placed_b", "delivered_tps",
-             "tps_per_provisioned_w", "dollars_per_tps")
+             "tps_per_provisioned_w", "dollars_per_tps", "rows_a",
+             "counts_a", "rows_b", "counts_b")
 
 
 def assert_same_mc(a, b, what):
@@ -539,7 +546,7 @@ def assert_same_mc(a, b, what):
         x, y = np.asarray(getattr(a, f)), np.asarray(getattr(b, f))
         if x.shape != y.shape or not np.array_equal(x, y, equal_nan=True):
             raise AssertionError(f"{what}: `{f}` differs")
-    if a.event_steps != b.event_steps:
+    if (a.event_steps, a.pod_steps) != (b.event_steps, b.pod_steps):
         raise AssertionError(f"{what}: event steps differ")
 
 
@@ -719,6 +726,262 @@ def mc_main_path(dev, name, axes, kw):
 def mc_main_paths(dev):
     return {name: mc_main_path(dev, name, axes, kw)
             for name, (axes, kw) in mc_figures().items()}
+
+
+# ------------------------------------------------------ multi-row pods
+
+POD_SCALE = 0.04          # benchmarks/run.py's SCALE: Fig. 17's own size
+FIG17_PODS = (3, 5, 7)
+STREAM_TOL = 1.0 / 512 + 1e-6   # one bucket of the streaming histogram
+
+
+def pod_env(scale, pod):
+    from repro_torch.core.arrivals import EnvelopeSpec
+    return EnvelopeSpec(demand_scale=scale, gpu_scenario="high",
+                        pod_racks=pod, pod_scale_arch=True)
+
+
+def fig17_axes():
+    """Fig. 17's pod group (benchmarks/run.py:298-310): 10N/8 and 8+2 x
+    pods of 3, 5 and 7 racks, HIGH, pod-scale racks, seed 0, var_min."""
+    from repro_torch.core import hierarchy
+    from repro_torch.core.sweep import SweepAxes
+    combos = [(d, p) for d in ("10N/8", "8+2") for p in FIG17_PODS]
+    return SweepAxes.zip(
+        designs=[hierarchy.get_design(d) for d, _ in combos],
+        envs=[pod_env(POD_SCALE, p) for _, p in combos]), combos
+
+
+def pod_golden_axes():
+    """The split-vs-legacy grid of tests/test_mc_sweep.py:219 (10N/8 with
+    pods of 3, 8+2 with pods of 5, seeds 3 and 4, scale 0.005) under
+    each of the four policies."""
+    from repro_torch.core import hierarchy
+    from repro_torch.core.sweep import SweepAxes
+    combos = [(d, p, s, pol) for pol in range(4)
+              for d, p, s in (("10N/8", 3, 3), ("8+2", 5, 4))]
+    return SweepAxes.zip(
+        [hierarchy.get_design(d) for d, *_ in combos],
+        [pod_env(0.005, p) for _, p, _, _ in combos],
+        policies=[c[3] for c in combos], seeds=[c[2] for c in combos])
+
+
+def mc_pod_axes():
+    """mc_pod_speedup's grid (benchmarks/run.py:632-660) for one pod size:
+    10N/8 and 8+2 x seeds 51 and 52, and its keywords."""
+    from repro_torch.core import hierarchy
+    from repro_torch.core.mc_sweep import MCAxes
+    axes = MCAxes.product(designs=[hierarchy.get_design(d)
+                                   for d in ("10N/8", "8+2")], seeds=(51, 52))
+    return axes, dict(n_trials=4, n_events=240, year=2030, scenario="high")
+
+
+def check_kernel_pod_shapes(dev):
+    """The kernel check at the HD-compacted row views the pod racks are
+    searched on: Fig. 17's [N, hd_scan] and mc_pod_speedup's."""
+    from repro_torch.core import placement as pl
+    from repro_torch.core.mc_sweep import _mc_prepare
+    from repro_torch.core.sweep import _prepare
+    prep = _prepare(fig17_axes()[0], 0, None, dev)
+    view = pl.hd_subset(prep.jt, prep.hd_scan).jt
+    N, K = view.row_cap.shape[:2]
+    out = {"fig17": dict(rows=f"{N}x{K}", **check_kernel(
+        dev, view, "Fig. 17's HD-compacted pod view"))}
+    axes, kw = mc_pod_axes()
+    (jt, *_), mode = _mc_prepare(axes, kw["n_trials"], kw["n_events"],
+                                 kw["year"], kw["scenario"], 0.6, 7, 10, 0.0,
+                                 False, None, dev)
+    view = pl.hd_subset(jt, mode["hd_scan"]).jt
+    N, K = view.row_cap.shape[:2]
+    out["mc_pod"] = dict(rows=f"{N}x{K}", **check_kernel(
+        dev, view, "mc_pod_speedup's HD-compacted pod view"))
+    return out
+
+
+def pod_golden(dev):
+    """Phase (b): the pod fleet golden on the CPU and on the card, split
+    and through the per-event cond: bitwise, registries included."""
+    from repro_torch.core.sweep import sweep
+    axes = pod_golden_axes()
+    for legacy in (False, True):
+        t0 = time.perf_counter()
+        on_cpu = sweep(axes, device="cpu", legacy_pod_cond=legacy)
+        t1 = time.perf_counter()
+        on_card = sweep(axes, device=dev, legacy_pod_cond=legacy)
+        t2 = time.perf_counter()
+        what = "legacy" if legacy else "split"
+        assert_same(on_cpu, on_card, f"pod golden {what} (CPU vs card)")
+        check_result(on_card, len(axes))
+        if on_card.pod_steps == 0:
+            raise AssertionError("pod golden: no pod rack was placed")
+        print(f"pod golden ({what}): {len(axes)} configurations (4 policies)"
+              f", {on_card.event_steps} placement steps of which "
+              f"{on_card.pod_steps} pod racks: CPU {t1 - t0:.2f} s, card "
+              f"{t2 - t1:.2f} s; registries and outputs bitwise equal; "
+              f"halls {[int(v) for v in on_card.n_halls_built]}, placed fraction "
+              f"{[float(v) for v in on_card.placed_fraction]}")
+
+
+def timed_sweep(axes, dev, **kw):
+    """One `sweep` on the card from zeroed launch counts: (result, wall
+    seconds), after checking one launch per placement step."""
+    import torch
+    from repro_torch.core.sweep import sweep
+    from repro_torch.kernels.placement_score.kernel import placement_score
+    placement_score.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sweep(axes, device=dev, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if placement_score.launches != res.event_steps:
+        raise AssertionError(f"{placement_score.launches} placement_score "
+                             f"launches for {res.event_steps} placement "
+                             "steps")
+    return res, wall
+
+
+def pod_main_path(dev):
+    """Phase (a): Fig. 17's pod group through `sweep` on the card, exact
+    and streaming quantiles; every output but p50/p90 bitwise, those
+    within one bucket; walls, steps, launches, idle share and the
+    figure's $/MW."""
+    import numpy as np
+    from repro_torch.core.sweep import sweep
+    axes, combos = fig17_axes()
+    exact, wall_e = timed_sweep(axes, dev)
+    stream, wall_s = timed_sweep(axes, dev, exact_quantiles=False)
+    check_result(exact, len(axes))
+    for f in SWEEP_FIELDS:
+        if f in ("p50_stranding", "p90_stranding"):
+            a, b = getattr(exact, f), getattr(stream, f)
+            if not np.array_equal(np.isnan(a), np.isnan(b)):
+                raise AssertionError(f"streaming `{f}`: NaN months differ")
+            gap = float(np.nanmax(np.abs(a - b)))
+            if gap > STREAM_TOL:
+                raise AssertionError(f"streaming `{f}` off by {gap}")
+            print(f"pod main path: streaming {f} within {gap:.3e} of the "
+                  f"exact (limit {STREAM_TOL:.3e})")
+        elif not np.array_equal(np.asarray(getattr(exact, f)),
+                                np.asarray(getattr(stream, f))):
+            raise AssertionError(f"streaming run: `{f}` differs")
+    steps, pods = exact.event_steps, exact.pod_steps
+    if pods == 0 or (stream.event_steps, stream.pod_steps) != (steps, pods):
+        raise AssertionError("pod main path: pod steps missing or unequal")
+    print(f"{'design':8s} {'pod':>4s} {'halls':>6s} {'deployed':>9s} "
+          f"{'P90str':>7s} {'eff$/MW':>9s}")
+    for i, (name, pod) in enumerate(combos):
+        print(f"{name:8s} {pod:4d} {exact.n_halls_built[i]:6d} "
+              f"{exact.final_deployed_mw[i]:8.1f}M "
+              f"{exact.p90_stranding[i, -1]:6.1%} "
+              f"{exact.effective_dpm[i] / 1e6:8.2f}M")
+    for i, (name, pod) in enumerate(combos):
+        print(f"  fig17.{name}.pod{pod}: "
+              f"eff$/MW={exact.effective_dpm[i] / 1e6:.2f}M")
+    wall, busy, n_device, top = profile_run(
+        lambda: sweep(axes, device=dev, exact_quantiles=False))
+    for name, (calls, secs) in top[:5]:
+        print(f"  device {secs:8.4f} s {calls:8d} calls  {name[:90]}")
+    print(f"pod main path: Fig. 17's pod group, {len(axes)} configurations "
+          f"at scale {POD_SCALE} on {exact.device}; {steps} placement steps "
+          f"= launches ({pods} pod racks, {steps - pods} clusters); wall "
+          f"per run exact {wall_e:.3f} s, streaming {wall_s:.3f} s "
+          f"({wall_e / steps * 1e3:.3f}, {wall_s / steps * 1e3:.3f} ms per "
+          f"step); profiled (streaming): {wall:.3f} s wall, device busy "
+          f"{busy:.3f} s, idle share {1 - busy / wall:.3f}, {n_device} "
+          f"kernels and copies ({n_device / steps:.1f} per step)")
+    return dict(launches=steps, pod_racks=pods, clusters=steps - pods)
+
+
+def pod_sweep_pair(dev):
+    """Phase (c): pod_sweep_speedup's grid (benchmarks/run.py:576-586,
+    scale 0.01, seeds 302 and 303, shared traces), split and legacy in
+    turns: halls and registries bitwise, float columns within 1e-6."""
+    import numpy as np
+    from repro_torch.core import hierarchy
+    from repro_torch.core.arrivals import generate_fleet_trace
+    from repro_torch.core.sweep import SweepAxes
+    combos = [(d, p, sd) for d in ("10N/8", "8+2") for p in (3, 5)
+              for sd in (302, 303)]
+    axes = SweepAxes.zip(
+        designs=[hierarchy.get_design(d) for d, _, _ in combos],
+        envs=[pod_env(0.01, p) for _, p, _ in combos],
+        seeds=[sd for *_, sd in combos])
+    traces = [generate_fleet_trace(e, s)
+              for e, s in zip(axes.envs, axes.seeds)]
+    walls = {False: [], True: []}
+    runs = {}
+    for legacy in (False, True, False, True):
+        runs[legacy], wall = timed_sweep(axes, dev, traces=traces,
+                                         legacy_pod_cond=legacy)
+        walls[legacy].append(wall)
+    split, legacy = runs[False], runs[True]
+    for f in ("n_halls_built", "reg_rows", "reg_counts"):
+        if not np.array_equal(getattr(split, f), getattr(legacy, f)):
+            raise AssertionError(f"pod sweep pair: `{f}` differs")
+    dev_max = 0.0
+    for f in ("final_deployed_mw", "placed_fraction", "p50_stranding",
+              "p90_stranding", "halls_active", "final_lineup_stranding"):
+        gap = float(np.max(np.abs(np.asarray(getattr(split, f), float)
+                                  - np.asarray(getattr(legacy, f), float))))
+        if gap > 1e-6:
+            raise AssertionError(f"pod sweep pair: `{f}` off by {gap}")
+        dev_max = max(dev_max, gap)
+    print(f"pod sweep pair: pod_sweep_speedup's {len(axes)} configurations "
+          f"at scale 0.01; split {split.event_steps} steps ({split.pod_steps}"
+          f" pod racks), walls {walls[False][0]:.3f}, {walls[False][1]:.3f} s"
+          f"; legacy {legacy.event_steps} steps ({legacy.pod_steps} pod "
+          f"racks), walls {walls[True][0]:.3f}, {walls[True][1]:.3f} s; "
+          f"halls and registries bitwise, float columns max dev {dev_max}")
+    return dict(split=split.event_steps, legacy=legacy.event_steps)
+
+
+def mc_pod_pair(dev):
+    """Phase (d): mc_pod_speedup's grid (pods of 3, 5 and 7, one
+    `mc_sweep` call each), split and legacy in turns: flags, registries
+    and every output bitwise; walls and launches per call."""
+    import numpy as np
+    import torch
+    from repro_torch.core.mc_sweep import mc_sweep
+    from repro_torch.kernels.placement_score.kernel import placement_score
+    axes, kw = mc_pod_axes()
+    launches = {}
+    for pod in FIG17_PODS:
+        runs, walls = {}, {False: [], True: []}
+        for legacy in (False, True, False, True):
+            placement_score.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = mc_sweep(axes, device=dev, pod_racks=pod,
+                           legacy_pod_cond=legacy, **kw)
+            torch.cuda.synchronize()
+            walls[legacy].append(time.perf_counter() - t0)
+            if placement_score.launches != res.event_steps:
+                raise AssertionError(f"mc pods {pod}: {placement_score.launches}"
+                                     f" launches for {res.event_steps} steps")
+            if legacy in runs:
+                assert_same_mc(runs[legacy], res, f"mc pods {pod} repeat")
+            runs[legacy] = res
+        split, legacy = runs[False], runs[True]
+        for f in MC_FIELDS:
+            if not np.array_equal(np.asarray(getattr(split, f)),
+                                  np.asarray(getattr(legacy, f)),
+                                  equal_nan=True):
+                raise AssertionError(f"mc pods {pod}: `{f}` differs, split "
+                                     "vs legacy")
+        if split.pod_steps == 0:
+            raise AssertionError(f"mc pods {pod}: no pod rack placed")
+        launches[pod] = dict(split=split.event_steps,
+                             legacy=legacy.event_steps,
+                             pod_racks=split.pod_steps)
+        print(f"mc pods {pod}: {len(axes)} configurations x "
+              f"{kw['n_trials']} trials; split {split.event_steps} launches "
+              f"({split.pod_steps} pod racks), walls {walls[False][0]:.3f}, "
+              f"{walls[False][1]:.3f} s; legacy {legacy.event_steps} "
+              f"launches ({legacy.pod_steps} pod racks), walls "
+              f"{walls[True][0]:.3f}, {walls[True][1]:.3f} s; flags, "
+              f"registries and outputs bitwise equal")
+    return launches
 
 
 # ---------------------------------------------------------------- ssd_scan
@@ -2080,6 +2343,7 @@ def main():
     t0 = time.perf_counter()
     stats = check_kernel(dev)
     mc_stats = check_kernel_mc_shapes(dev)
+    pod_stats = check_kernel_pod_shapes(dev)
     timings["kernel check"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -2116,6 +2380,22 @@ def main():
     timings["MC main paths"] = time.perf_counter() - t0
     print(f"MC: {n_draws} Threefry draws checked; placement_score launches "
           f"{mc_launches}")
+
+    t0 = time.perf_counter()
+    pod_golden(dev)
+    timings["pod golden"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    pod_launches = {"fig17": pod_main_path(dev)}
+    timings["pod main path"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    pod_launches["pod_sweep"] = pod_sweep_pair(dev)
+    timings["pod sweep pair"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    pod_launches["mc_pod"] = mc_pod_pair(dev)
+    timings["mc pod pair"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     serve_golden(dev)
@@ -2157,7 +2437,8 @@ def main():
              source="src/repro_torch/csrc/placement_score.cu",
              replaces="src/repro/kernels/placement_score/kernel.py:73",
              launches=launches, library_ms=None, **stats,
-             mc_launches=mc_launches, mc_shapes=mc_stats),
+             mc_launches=mc_launches, mc_shapes=mc_stats,
+             pod_launches=pod_launches, pod_shapes=pod_stats),
         dict(name="ssd_scan", route="cuda",
              source="src/repro_torch/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan/kernel.py:52",

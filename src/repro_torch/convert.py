@@ -5,9 +5,8 @@ leaves of `repro`'s `JaxTopology`, `HallState` and `FleetTrace`, as
 `np.asarray` gives them, and a model's parameter tree) and returns the
 port's tensors on a given device.  A fleet-state leaf may be one
 configuration's (the batch axis is added) or already carry the leading
-configuration axis.  Leaves that only the pod and row-subset paths read
-(`row_domain`, `hd_index`) are not taken: those paths are not ported.
-Only numpy crosses over: nothing of `repro` or `jax` is imported here.
+configuration axis.  Only numpy crosses over: nothing of `repro` or
+`jax` is imported here.
 """
 from __future__ import annotations
 
@@ -24,7 +23,8 @@ from .models.params import Spec, leaves, unflatten
 _TOPOLOGY = {
     "row_cap": (torch.float32, 2), "row_feeds": (torch.int32, 2),
     "row_nfeeds": (torch.int32, 1), "row_is_hd": (torch.bool, 1),
-    "row_hall": (torch.int64, 1), "lineup_cap": (torch.float32, 1),
+    "row_domain": (torch.int64, 1), "row_hall": (torch.int64, 1),
+    "hd_index": (torch.int64, 1), "lineup_cap": (torch.float32, 1),
     "lineup_is_active": (torch.bool, 1), "lineup_hall": (torch.int32, 1),
     "hall_liq_cap": (torch.float32, 1), "ha_frac": (torch.float32, 0),
     "is_block": (torch.bool, 0),

@@ -1,2 +1,3 @@
-"""Core of the port: hierarchy, placement, the pod-free fleet lifecycle,
-the batched sweep, and the host-side cost and throughput models."""
+"""Core of the port: hierarchy, placement (multi-row pods included), the
+fleet lifecycle, the batched sweep, the single-hall Monte Carlo, the
+streaming quantiles, and the host-side cost and throughput models."""

@@ -1,23 +1,25 @@
-"""Fleet-scale lifecycle simulator (paper §4.4, Fig. 8 pipeline), pod-free.
+"""Fleet-scale lifecycle simulator (paper §4.4, Fig. 8 pipeline).
 
 Places a multi-year arrival trace across a growing fleet of identical
 halls: opens a new hall when no feasible placement exists, harvests racks
 one year after deployment, and decommissions racks at end-of-life.
 
-The counterpart of `repro.core.fleet` for traces without multi-row pods.
-`repro` runs the lifecycle as one `lax.scan` over months with an inner
-scan over each month's events, `vmap`ped over configurations; the port
-runs the same two loops in Python over one batched device state, so each
-event step places one event in every configuration with one
-placement-score launch.  The month's placement results come back to the
-host once per month: the registry of where each event landed, and the
+The counterpart of `repro.core.fleet`.  `repro` runs the lifecycle as one
+`lax.scan` over months with inner scans over each month's events,
+`vmap`ped over configurations; the port runs the same loops in Python
+over one batched device state, so each placement step places one event
+(or one rack of a pod) in every configuration with one placement-score
+launch.  The month's placement results come back to the host once per
+month: the registry of where each event's racks landed, and the
 decommission/harvest bookkeeping that reads it, live there (see
 `placement.release_bulk`).
 
-Not ported yet, each raising `NotImplementedError`: traces with pods
-(`with_pods=True`, ROADMAP queue 1, items 4 and 6), the pre-split
-`legacy_pod_cond=True` reference path (with the pods), and the streaming
-quantiles of `exact_quantiles=False` (ROADMAP queue 1, item 6).
+Traces with multi-row GPU pods run `repro`'s split-trace mode by default
+(each month a pod window, then a cluster window) or, with
+``legacy_pod_cond=True``, its per-event cond over all events.  The
+monthly p50/p90 stranding is exact over the whole history, or with
+``exact_quantiles=False`` a streaming histogram estimate of each month
+(`quantiles.hist_masked_quantiles`).
 """
 from __future__ import annotations
 
@@ -27,16 +29,11 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from . import cost, placement as pl, prng
+from . import cost, placement as pl, prng, quantiles as qt
 from .arrivals import EnvelopeSpec, Trace, generate_fleet_trace
 from .hierarchy import DesignSpec, build_topology
-from .placement import DEFAULT_POLICY, Deployment, HallState, Topology
+from .placement import DEFAULT_POLICY, MAX_POD_RACKS, Deployment, Topology
 from ..device import resolve_device
-
-_PODS_TODO = ("multi-row pods (_place_pod and the split-trace pod window) "
-              "are not ported yet (ROADMAP queue 1, items 4 and 6)")
-_STREAMING_TODO = ("exact_quantiles=False (streaming histogram quantiles) is "
-                   "not ported yet (ROADMAP queue 1, item 6)")
 
 
 @dataclass
@@ -126,19 +123,32 @@ class FleetTrace(NamedTuple):
         )
 
 
-def _month_e_max(trace: Trace, months: int) -> int:
-    """Largest per-month event count (the inner loop length)."""
+def _month_e_max(trace: Trace, months: int,
+                 select: np.ndarray | None = None) -> int:
+    """Largest per-month event count (the inner loop length), optionally
+    over the `select`-ed subset of events (the split-trace pod and
+    cluster windows)."""
     month = np.asarray(trace.month)
+    if select is not None:
+        month = month[np.asarray(select)]
     starts = np.searchsorted(month, np.arange(months))
     ends = np.searchsorted(month, np.arange(months), side="right")
     return max(1, int((ends - starts).max())) if len(month) else 1
 
 
 def _month_slices(trace: Trace, months: int, e_max: int | None = None,
-                  modulo: int | None = None):
+                  modulo: int | None = None,
+                  select: np.ndarray | None = None):
     """Per-month event-index windows [M, e_max] plus validity mask.
-    `modulo` must equal the (padded) trace length."""
+    `modulo` must equal the (padded) trace length.  With `select` (a
+    boolean event mask) the windows cover only the selected events, their
+    indices still into the full trace: the split-trace pod and cluster
+    windows."""
     month = np.asarray(trace.month)
+    eids = None
+    if select is not None:
+        eids = np.flatnonzero(np.asarray(select))
+        month = month[eids]
     starts = np.searchsorted(month, np.arange(months))
     ends = np.searchsorted(month, np.arange(months), side="right")
     e_max = e_max or (max(1, int((ends - starts).max()))
@@ -146,22 +156,65 @@ def _month_slices(trace: Trace, months: int, e_max: int | None = None,
     pos = starts[:, None] + np.arange(e_max)[None, :]       # [M, e_max]
     valid = pos < ends[:, None]
     E = modulo or max(1, len(trace))
-    return (pos % E).astype(np.int32), valid
+    if eids is None:
+        idx = pos % E
+    elif len(eids):
+        idx = np.where(valid, eids[pos % len(eids)], 0)
+    else:
+        idx = np.zeros_like(pos)
+    return idx.astype(np.int32), valid, e_max
+
+
+def _pod_scan_len(traces) -> int:
+    """Rack-scan length of the split-trace pod path: the largest pod size
+    across `traces`, capped at `MAX_POD_RACKS`."""
+    n = 1
+    for t in traces:
+        pods = np.asarray(t.is_pod)
+        if pods.any():
+            n = max(n, int(np.asarray(t.n_racks)[pods].max()))
+    return min(n, MAX_POD_RACKS)
 
 
 def _event_windows(trace: Trace, months: int, split_pods: bool,
-                   e_max: int | None = None, modulo: int | None = None):
-    """(idx, valid): each month's window over ALL its events, the
-    pod-free path of `repro`'s `_event_windows`."""
+                   e_max: int | None = None, ep_max: int | None = None,
+                   modulo: int | None = None):
+    """(idx, valid, idx_pod, valid_pod) for `simulate_lifecycle`.
+
+    `split_pods=True` partitions each month's window into pod events
+    (placed first, the order generated traces have) and cluster events;
+    otherwise the first window covers all events and the pod window is a
+    1-wide all-invalid dummy.  The split keeps placement order and keys
+    only when pods precede clusters within every month, as
+    `generate_fleet_trace` emits them; a trace with a pod after a cluster
+    of its month raises `ValueError` (sort it pods-first per month, or
+    run with ``legacy_pod_cond=True``)."""
     if split_pods:
-        raise NotImplementedError(_PODS_TODO)
-    return _month_slices(trace, months, e_max=e_max, modulo=modulo)
+        pod = np.asarray(trace.is_pod)
+        month = np.asarray(trace.month)
+        same_month = month[1:] == month[:-1]
+        if bool(np.any(same_month & pod[1:] & ~pod[:-1])):
+            raise ValueError(
+                "split-trace scan needs pod events to precede cluster "
+                "events within each month (the generated-trace order); "
+                "sort the trace pods-first per month or use "
+                "legacy_pod_cond=True")
+        idx, valid, _ = _month_slices(trace, months, e_max=e_max,
+                                      modulo=modulo, select=~pod)
+        idx_p, valid_p, _ = _month_slices(trace, months, e_max=ep_max,
+                                          modulo=modulo, select=pod)
+    else:
+        idx, valid, _ = _month_slices(trace, months, e_max=e_max,
+                                      modulo=modulo)
+        idx_p = np.zeros((months, ep_max or 1), np.int32)
+        valid_p = np.zeros((months, ep_max or 1), bool)
+    return idx, valid, idx_p, valid_p
 
 
 class SimOutputs(NamedTuple):
     """Outputs of N lifecycles.  The first nine fields are `repro`'s
-    `SimOutputs` with a leading batch axis; the registry fields are the
-    port's own, for parity checks of every placement decision."""
+    `SimOutputs` with a leading batch axis; the others are the port's
+    own, for parity checks of every placement decision."""
     halls_active: torch.Tensor            # [N, M] i64
     deployed_kw: torch.Tensor             # [N, M] f32
     p50_stranding: torch.Tensor           # [N, M] f32
@@ -172,9 +225,13 @@ class SimOutputs(NamedTuple):
     final_deployed_kw: torch.Tensor       # [N] f32
     placed_fraction: torch.Tensor         # [N] f32
     act_month: torch.Tensor               # [N, H] i64: hall opening month
-    reg_rows: torch.Tensor                # [N, E] i64 (host): row, -1 if
-                                          # the event was not placed
-    event_steps: int                      # placement steps run
+    reg_rows: torch.Tensor                # [N, E, MAX_POD_RACKS] i64
+                                          # (host): the rows an event's
+                                          # racks landed in, -1 padded
+    reg_counts: torch.Tensor              # [N, E, MAX_POD_RACKS] f32
+                                          # (host): racks per row
+    event_steps: int                      # placement steps run (launches)
+    pod_steps: int                        # of which pod racks
 
 
 def _masked_percentiles(x, mask, qs):
@@ -206,39 +263,98 @@ def _mature_mask(am, m, mature_months):
 _NEW_HALL_BIAS = 1e6   # keeps placements in existing halls when feasible
 
 
-def simulate_lifecycle(jt: Topology, ft: FleetTrace, idx, valid, policy,
-                       h_cap, n_real, *, harvest: bool, mature_months: int,
-                       seeds=None, with_pods: bool = False,
+def _slots(col, idx):
+    """A host trace column ([N, E]) at each window slot (`idx` [N, M,
+    e_max] event ids): [M, e_max, N]."""
+    return col.gather(1, idx.reshape(idx.shape[0], -1)).reshape(idx.shape) \
+        .permute(1, 2, 0)
+
+
+def _step_columns(ft: FleetTrace, idx, dev):
+    """The deployment at each window slot, [M, e_max, N] on `dev`."""
+    return Deployment(*(_slots(c, idx).contiguous().to(dev) for c in (
+        ft.rack_kw, ft.n_racks, ft.is_gpu, ft.tier, ft.is_pod)))
+
+
+def _attempt_retry(place, state, live, n_active, n_try, row_hall):
+    """`repro`'s attempt in the open halls, then, for the live
+    configurations where it failed, the retry that may open hall
+    ``n_try - 1``: ``place(state, row_active, live) → (state', ok, rows,
+    counts)``.  A failed attempt leaves a configuration's state as it
+    was, so the retry runs on the attempt's state.  The retry runs only
+    if some configuration needs it (one read of the card).  Returns
+    (state', ok, rows, counts, n_active', tries), tries being 1 or 2."""
+    st, ok, rows, counts = place(state, row_hall < n_active[:, None], live)
+    retry = live & ~ok
+    n_new = torch.where(ok, n_active, n_try)
+    tries = 1
+    if bool(retry.any()):
+        st, ok2, rows2, counts2 = place(st, row_hall < n_try[:, None], retry)
+        rows = torch.where(ok[:, None], rows, rows2)
+        counts = torch.where(ok[:, None], counts, counts2)
+        ok = ok | ok2
+        tries = 2
+    return st, ok, rows, counts, torch.where(live, n_new, n_active), tries
+
+
+def simulate_lifecycle(jt: Topology, ft: FleetTrace, idx, valid, idx_pod,
+                       valid_pod, policy, h_cap, n_real, *, harvest: bool,
+                       mature_months: int, seeds=None,
+                       with_pods: bool = False,
                        legacy_pod_cond: bool = False,
+                       pod_scan_len: int = MAX_POD_RACKS,
+                       hd_scan: int | None = None,
                        exact_quantiles: bool = True,
+                       quantile_bins: int | None = None,
                        interpret: bool = False) -> SimOutputs:
     """Run N monthly lifecycles on `jt`'s device.
 
-    `idx`/`valid` ([N, M, e_max], host arrays) window each month's
-    events; `policy` comes from `placement.policy_tensor`; `h_cap` ([N])
-    caps hall opening per configuration; `n_real` ([N]) counts the real
+    `idx`/`valid` and `idx_pod`/`valid_pod` ([N, M, e_max] and [N, M,
+    ep_max], host arrays) are `_event_windows`' cluster and pod windows;
+    `policy` comes from `placement.policy_tensor`; `h_cap` ([N]) caps
+    hall opening per configuration; `n_real` ([N]) counts the real
     (unpadded) events; `seeds` ([N] ints) key the random policy's draws
     and are needed only where a configuration runs it: configuration n
     keys by ``PRNGKey(int32(seeds[n]) + 1)``, month m by ``fold_in(key,
-    m)``, and the event in slot i of the month's window by ``fold_in(
-    month key, i)``, drawing one score per row of the whole padded fleet,
-    as `repro` does.  A month's draws are made in one batched pass before
-    its event loop.  Each month runs decommission, harvest, then every
-    event of its window with one biased attempt over halls `< n + 1`
-    (`repro`'s pod-free path: the bias keeps a cluster in the existing
-    halls whenever one of their rows fits, so one attempt equals
-    try-then-open-a-hall), then hall activations.  Event steps where no
-    configuration has a live event change nothing and are skipped.
-    `interpret=True` scores rows with the plain version instead of the
-    CUDA kernel."""
-    if with_pods or legacy_pod_cond:
-        raise NotImplementedError(_PODS_TODO)
-    if not exact_quantiles:
-        raise NotImplementedError(_STREAMING_TODO)
+    m)``, the event in slot i of the month by ``fold_in(month key, i)``
+    (a split month's cluster slots count on from its pod count), and
+    rack r of a pod by ``fold_in(event key, r)``, each drawing one score
+    per row of the whole padded fleet, as `repro` does.
+
+    Each month runs decommission, harvest, the month's placements, then
+    hall activations and the month's stats.  Placement follows `repro`'s
+    three modes:
+
+    * ``with_pods=False``: every event of the window with one biased
+      attempt over halls ``< n + 1`` (the bias keeps a cluster in the
+      open halls whenever one of their rows fits, so one attempt equals
+      try-then-open-a-hall);
+    * split trace (``with_pods=True``): the month's pods first, each an
+      atomic `placement._place_pod` in the open halls, then a whole-pod
+      retry that may open a hall, both on the same rack keys, over the
+      HD-compacted view ``hd_index[:, :hd_scan]`` when `hd_scan` is
+      given; then the clusters, biased as above.  `pod_scan_len` (≥ the
+      largest pod) bounds the rack scan;
+    * ``legacy_pod_cond=True``: every event of the window through
+      `placement.place` (pod or cluster by the event), attempt then
+      retry, the pod scan over all rows and up to `MAX_POD_RACKS` racks.
+
+    Slots and racks where no configuration is live change nothing and
+    are not run; each step run is one placement-score launch
+    (`event_steps`, of which `pod_steps` placed pod racks).
+
+    `exact_quantiles=True` takes the monthly p50/p90 over the whole
+    ``[N, M, H]`` stranding history; `False` takes each month's
+    `quantiles.hist_masked_quantiles` over its ``[N, H]`` cross-section
+    (`quantile_bins` buckets, default `quantiles.DEFAULT_BINS`; error ≤
+    one bucket) and keeps no history.  `interpret=True` scores rows with
+    the plain version instead of the CUDA kernel."""
     dev = jt.row_cap.device
     host = torch.device("cpu")
     N, H = jt.hall_liq_cap.shape
     R = jt.row_cap.shape[1]
+    split = with_pods and not legacy_pod_cond
+    n_bins = quantile_bins or qt.DEFAULT_BINS
     random = (policy == pl.POLICY_RANDOM).cpu()
     keys = None
     if random.any():
@@ -248,27 +364,35 @@ def simulate_lifecycle(jt: Topology, ft: FleetTrace, idx, valid, policy,
         keys = prng.prng_key([int(s) + 1 for s in seeds], dev)
     idx = torch.as_tensor(np.asarray(idx), dtype=torch.int64)
     valid = torch.as_tensor(np.asarray(valid), dtype=torch.bool)
-    M, e_max = idx.shape[1], idx.shape[2]
+    idx_pod = torch.as_tensor(np.asarray(idx_pod), dtype=torch.int64)
+    valid_pod = torch.as_tensor(np.asarray(valid_pod), dtype=torch.bool)
+    M, e_max, ep_max = idx.shape[1], idx.shape[2], idx_pod.shape[2]
     ft = FleetTrace(*(t.to(host) for t in ft))
     jt_host = Topology(*(t.to(host) for t in jt))
 
-    # per-step deployments for every configuration, [M, e_max, N] on device
-    flat_idx = idx.reshape(N, M * e_max)
-
-    def steps(col):
-        return col.gather(1, flat_idx).reshape(N, M, e_max) \
-            .permute(1, 2, 0).contiguous().to(dev)
-
-    step_kw, step_nr = steps(ft.rack_kw), steps(ft.n_racks)
-    step_gpu, step_tier = steps(ft.is_gpu), steps(ft.tier)
+    # per-slot deployments for every configuration, [M, e_max, N] on the
+    # device, and on the host which slots are live and their pods' sizes
+    # (0 for a cluster): the rack steps a slot needs
+    step = _step_columns(ft, idx, dev)
     step_live = valid.permute(1, 2, 0).contiguous()
     step_live_dev = step_live.to(dev)
+    sizes = _slots(torch.where(ft.is_pod, ft.n_racks, 0), idx) * step_live
+    if split:
+        pstep = _step_columns(ft, idx_pod, dev)
+        plive = valid_pod.permute(1, 2, 0).contiguous()
+        plive_dev = plive.to(dev)
+        psizes = _slots(ft.n_racks, idx_pod) * plive
+        hd = None if hd_scan is None else pl.hd_subset(jt, hd_scan)
 
     state = pl.init_state(jt)
-    # the registry, on the host: the row each event landed in, -1 while
-    # unplaced (a pod-free event fills one row, with all its racks)
-    reg_rows = torch.full((N, ft.month.shape[1]), -1, dtype=torch.int64)
-    harvested = torch.zeros(reg_rows.shape, dtype=torch.bool)
+    # the registry, on the host: the rows each event's racks landed in
+    # (-1 while unplaced) and the racks in each; a cluster fills one row,
+    # so a pod-free run keeps one slot per event
+    E = ft.month.shape[1]
+    S = MAX_POD_RACKS if with_pods else 1
+    reg_rows = torch.full((N, E, S), -1, dtype=torch.int64)
+    reg_counts = torch.zeros((N, E, S), dtype=torch.float32)
+    harvested = torch.zeros((N, E), dtype=torch.bool)
     removed = harvested.clone()
     zero_frac = torch.zeros_like(ft.harvest_frac)
 
@@ -279,17 +403,16 @@ def simulate_lifecycle(jt: Topology, ft: FleetTrace, idx, valid, policy,
     act_month = torch.full((N, H), -1, dtype=torch.int64, device=dev)
     act_month[:, 0] = 0
     hist_halls, hist_deployed, hist_strand, hist_act = [], [], [], []
-    event_steps = 0
+    hist_p50, hist_p90 = [], []
+    event_steps = pod_steps = 0
 
     def release(st, fraction):
-        counts = torch.where(reg_rows >= 0, ft.n_racks.float(), 0.0)
-        return pl.release_bulk(jt_host, st, reg_rows[..., None],
-                               counts[..., None], ft.rack_kw, ft.is_gpu,
-                               ft.tier, fraction)
+        return pl.release_bulk(jt_host, st, reg_rows, reg_counts,
+                               ft.rack_kw, ft.is_gpu, ft.tier, fraction)
 
     for m in range(M):
         # ---- 1. decommission expired racks ----
-        placed = reg_rows >= 0
+        placed = reg_rows[..., 0] >= 0
         expire = placed & ~removed & (ft.month + ft.lifetime_m <= m)
         if expire.any():
             frac = torch.where(harvested, ft.harvest_frac, zero_frac)
@@ -305,34 +428,84 @@ def simulate_lifecycle(jt: Topology, ft: FleetTrace, idx, valid, policy,
             harvested = harvested | hv
 
         # ---- 3. place this month's arrivals ----
+        mkeys = None if keys is None else prng.fold_in(keys, m)
+        # each step run: (event ids [N], live [N], and rows [N, 8] with
+        # counts [N, 8], or a cluster's row [N] with None)
+        done = []
+        offset = None
+        if split:
+            for j in range(ep_max):
+                live_h = plive[m, j]
+                if not bool(live_h.any()):
+                    continue
+                racks = min(pod_scan_len, int(psizes[m, j].max()))
+                rand = None if keys is None else pl.random_draws(
+                    prng.fold_in(mkeys, j), random, racks, R)
+                dep = Deployment(*(c[m, j] for c in pstep))
+
+                def place_pod(st, active, live):
+                    return pl._place_pod(jt, st, dep, policy, active,
+                                         live=live, max_racks=racks,
+                                         subset=hd, rand=rand,
+                                         interpret=interpret)
+
+                state, ok, rows, counts, n_active, tries = _attempt_retry(
+                    place_pod, state, plive_dev[m, j], n_active,
+                    torch.minimum(n_active + 1, h_cap), row_hall)
+                done.append((idx_pod[:, m, j], live_h, rows, counts))
+                event_steps += tries * racks
+                pod_steps += tries * racks
+            # cluster keys count on from each configuration's pod count
+            offset = valid_pod[:, m].sum(dim=1)
         draws = (None if keys is None else
-                 pl.random_draws(prng.fold_in(keys, m), random, e_max, R))
-        ran, rows_m = [], []
+                 pl.random_draws(mkeys, random, e_max, R, offset=offset))
         for i in range(e_max):
-            if not bool(step_live[m, i].any()):
+            live_h = step_live[m, i]
+            if not bool(live_h.any()):
                 continue
-            dep = Deployment(step_kw[m, i], step_nr[m, i], step_gpu[m, i],
-                             step_tier[m, i])
+            dep = Deployment(*(c[m, i] for c in step))
             n_try = torch.minimum(n_active + 1, h_cap)
+            rand = None if draws is None else draws[i]
+            if legacy_pod_cond and with_pods:
+                racks = int(sizes[m, i].max())
+                pod_rand = None if keys is None or not racks else \
+                    pl.random_draws(prng.fold_in(mkeys, i), random, racks, R)
+
+                def place_any(st, active, live):
+                    return pl.place(jt, st, dep, policy, active, live=live,
+                                    rand=rand, pod_rand=pod_rand,
+                                    max_racks=racks, interpret=interpret)
+
+                state, ok, rows, counts, n_active, tries = _attempt_retry(
+                    place_any, state, step_live_dev[m, i], n_active, n_try,
+                    row_hall)
+                done.append((idx[:, m, i], live_h, rows, counts))
+                event_steps += tries * (1 + racks)
+                pod_steps += tries * racks
+                continue
             bias = torch.where(row_hall >= n_active[:, None], _NEW_HALL_BIAS,
                                0.0)
             state, ok, row = pl.place_in_row(
                 jt, state, dep, dep.n_racks, policy,
                 row_hall < n_try[:, None], score_bias=bias,
-                live=step_live_dev[m, i],
-                rand=None if draws is None else draws[i],
-                interpret=interpret)
+                live=step_live_dev[m, i], rand=rand, interpret=interpret)
             hall = row_hall.gather(1, row.clamp(min=0)[:, None])[:, 0]
             n_new = torch.where(ok & (hall < n_active), n_active, n_try)
             n_active = torch.where(step_live_dev[m, i], n_new, n_active)
-            ran.append(i)
-            rows_m.append(row)
+            done.append((idx[:, m, i], live_h, row, None))
             event_steps += 1
 
-        if ran:   # one copy to the host per month: the registry update
-            rows_h = torch.stack(rows_m, 1).to(host)           # [N, S]
-            n_i, s_i = torch.nonzero(valid[:, m, ran], as_tuple=True)
-            reg_rows[n_i, idx[:, m, ran][n_i, s_i]] = rows_h[n_i, s_i]
+        if done:   # one copy to the host per month: the registry update
+            for eids, live_h, rows, counts in _to_host(done):
+                n_i = torch.nonzero(live_h)[:, 0]
+                e_i = eids[n_i]
+                if counts is None:    # a cluster: all its racks in one row
+                    reg_rows[n_i, e_i, 0] = rows[n_i]
+                    reg_counts[n_i, e_i, 0] = torch.where(
+                        rows[n_i] >= 0, ft.n_racks[n_i, e_i].float(), 0.0)
+                else:
+                    reg_rows[n_i, e_i] = rows[n_i, :S]
+                    reg_counts[n_i, e_i] = counts[n_i, :S]
 
         # ---- 4. hall activations and the month's stats ----
         act_month = torch.where(
@@ -340,18 +513,31 @@ def simulate_lifecycle(jt: Topology, ft: FleetTrace, idx, valid, policy,
             act_month)
         hist_halls.append(n_active)
         hist_deployed.append(pl.deployed_kw(state))
-        hist_strand.append(pl.hall_stranding(jt, state))
-        hist_act.append(act_month)
+        strand = pl.hall_stranding(jt, state)
+        if exact_quantiles:
+            hist_strand.append(strand)
+            hist_act.append(act_month)
+        else:
+            p50, p90 = qt.hist_masked_quantiles(
+                strand, _mature_mask(act_month, m, mature_months),
+                (50.0, 90.0), n_bins=n_bins)
+            hist_p50.append(p50)
+            hist_p90.append(p90)
 
-    # ---- exact p50/p90 over the [N, M, H] stranding history ----
-    strand = torch.stack(hist_strand, 1)
-    acts = torch.stack(hist_act, 1)
-    months = torch.arange(M, device=dev)[None, :, None]
-    p50, p90 = _masked_percentiles(
-        strand, _mature_mask(acts, months, mature_months), (50.0, 90.0))
+    if exact_quantiles:
+        # ---- exact p50/p90 over the [N, M, H] stranding history ----
+        strand = torch.stack(hist_strand, 1)
+        acts = torch.stack(hist_act, 1)
+        months = torch.arange(M, device=dev)[None, :, None]
+        p50, p90 = _masked_percentiles(
+            strand, _mature_mask(acts, months, mature_months), (50.0, 90.0))
+    else:
+        p50, p90 = torch.stack(hist_p50, 1), torch.stack(hist_p90, 1)
 
     n_real = torch.as_tensor(np.asarray(n_real), dtype=torch.float32)
-    pf = (reg_rows >= 0).float().sum(dim=1) / torch.clamp(n_real, min=1.0)
+    placed = reg_rows[..., 0] >= 0
+    pf = placed.float().sum(dim=1) / torch.clamp(n_real, min=1.0)
+    pad = MAX_POD_RACKS - S
     return SimOutputs(
         halls_active=torch.stack(hist_halls, 1),
         deployed_kw=torch.stack(hist_deployed, 1),
@@ -360,7 +546,26 @@ def simulate_lifecycle(jt: Topology, ft: FleetTrace, idx, valid, policy,
         final_lineup_stranding=pl.lineup_stranding(jt, state),
         n_halls_built=n_active, final_deployed_kw=pl.deployed_kw(state),
         placed_fraction=pf.to(dev), act_month=act_month,
-        reg_rows=reg_rows, event_steps=event_steps)
+        reg_rows=torch.nn.functional.pad(reg_rows, (0, pad), value=-1),
+        reg_counts=torch.nn.functional.pad(reg_counts, (0, pad)),
+        event_steps=event_steps, pod_steps=pod_steps)
+
+
+def _to_host(done):
+    """The month's placement results on the host, in one copy of the
+    stacked rows (and one of the pods' counts)."""
+    rows = [r if r.dim() == 2 else r[:, None] for _, _, r, _ in done]
+    width = max(r.shape[1] for r in rows)
+    rows = torch.stack([torch.nn.functional.pad(r, (0, width - r.shape[1]),
+                                                value=-1) for r in rows]) \
+        .cpu()
+    counted = [c for _, _, _, c in done if c is not None]
+    counts = iter(torch.stack(counted).cpu()) if counted else iter(())
+    for (eids, live_h, r, c), r_host in zip(done, rows):
+        if c is None:
+            yield eids, live_h, r_host[:, 0], None
+        else:
+            yield eids, live_h, r_host, next(counts)
 
 
 def make_fleet_result(out, months: int, lineups_per_hall: int,
@@ -391,9 +596,11 @@ def make_fleet_result(out, months: int, lineups_per_hall: int,
 
 def run_fleet(cfg: FleetConfig, trace: Trace | None = None,
               device="cuda", interpret: bool = False,
-              exact_quantiles: bool = True) -> FleetResult:
+              exact_quantiles: bool = True,
+              quantile_bins: int | None = None,
+              legacy_pod_cond: bool = False) -> FleetResult:
     """Single-configuration lifecycle at the topology's exact shape (no
-    sweep padding): `repro`'s `run_fleet` for pod-free traces.
+    sweep padding): `repro`'s `run_fleet`.
 
     Args:
         cfg: design/envelope/policy/seed bundle (see `FleetConfig`).
@@ -401,25 +608,33 @@ def run_fleet(cfg: FleetConfig, trace: Trace | None = None,
             `generate_fleet_trace(cfg.env, cfg.seed)`.
         device: where the lifecycle runs (default ``"cuda"``).
         interpret: score rows with the plain version, not the kernel.
-        exact_quantiles: only `True` is ported.
+        exact_quantiles: `True` (default) takes p50/p90 stranding over
+            the whole history; `False` the streaming histogram estimate
+            (error ≤ `1 / quantile_bins`; see `simulate_lifecycle`).
+        quantile_bins: the histogram's buckets (default
+            `quantiles.DEFAULT_BINS`); ignored when exact.
+        legacy_pod_cond: place a pod trace's events through the per-event
+            cond instead of the split-trace windows (the same results).
     """
     dev = resolve_device(device)
     design, env = cfg.design, cfg.env
     if trace is None:
         trace = generate_fleet_trace(env, cfg.seed)
-    if bool(np.asarray(trace.is_pod).any()):
-        raise NotImplementedError(_PODS_TODO)
     months = env.n_months
     H = cfg.n_halls_max or _auto_halls(design, env)
     topo = build_topology(design, H)
     jt = pl.topology([topo], dev)
     ft = FleetTrace.from_traces([trace])
-    idx, valid = _event_windows(trace, months, False)
+    with_pods = bool(np.asarray(trace.is_pod).any())
+    windows = _event_windows(trace, months, with_pods and not legacy_pod_cond)
     out = simulate_lifecycle(
-        jt, ft, idx[None], valid[None], pl.policy_tensor([cfg.policy], dev),
-        [H], [len(trace)], harvest=cfg.harvest, seeds=[cfg.seed],
-        mature_months=cfg.mature_months, exact_quantiles=exact_quantiles,
-        interpret=interpret)
+        jt, ft, *(w[None] for w in windows),
+        pl.policy_tensor([cfg.policy], dev), [H], [len(trace)],
+        harvest=cfg.harvest, seeds=[cfg.seed],
+        mature_months=cfg.mature_months, with_pods=with_pods,
+        legacy_pod_cond=legacy_pod_cond, pod_scan_len=_pod_scan_len([trace]),
+        hd_scan=topo.n_hd_rows, exact_quantiles=exact_quantiles,
+        quantile_bins=quantile_bins, interpret=interpret)
     one = type(out)(*(x[0].cpu().numpy() if torch.is_tensor(x) else x
                       for x in out))
     return make_fleet_result(one, months, topo.lineups_per_hall,

@@ -1,4 +1,4 @@
-"""Batched single-hall Monte Carlo engine (paper §4.4, Figs. 5–7), pod-free.
+"""Batched single-hall Monte Carlo engine (paper §4.4, Figs. 5–7).
 
 The counterpart of `repro.core.mc_sweep`.  The paper's single-hall
 results are grids: stranding CDFs per design (Fig. 5), a 21-point
@@ -15,24 +15,25 @@ shapes as `sweep.SweepAxes` pads them:
                    harvest=False, single_sku_gpu=True)   # on the card
     res.deployed_kw[i].mean(), res.result(i) ...
 
-Each event step launches the placement-score kernel once, over all N·R
-rows.  Traces with pods raise `NotImplementedError` (ROADMAP queue 1,
-items 4 and 6); `sharded_mc_sweep`, the grid split over several cards,
-waits for ROADMAP queue 1, item 9.
+Each placement step launches the placement-score kernel once, over all
+N·R rows.  Pod traces (``pod_racks > 1``) run the split-pods path (a pod
+window over the HD-compacted rows, then a cluster window) or, with
+``legacy_pod_cond=True``, the per-event cond; both place alike.
+`sharded_mc_sweep`, the grid split over several cards, waits for ROADMAP
+queue 1, item 9.
 """
 from __future__ import annotations
 
 import functools
 import itertools
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from . import arrivals, cost, placement as pl, prng, projections as proj
 from . import throughput as tp
-from .fleet import _PODS_TODO
 from .hierarchy import (DesignSpec, HallTopology, SweepValidationError,
                         build_topology)
 from .placement import DEFAULT_POLICY, POLICY_NAMES, Topology
@@ -140,7 +141,13 @@ class MCResult:
     tps_per_provisioned_w: np.ndarray = None  # [B, T, Mdl]
     dollars_per_tps: np.ndarray = None       # [B, T, Mdl]
     # --- the port's own: run facts ---
+    rows_a: np.ndarray = None      # [B, T, E, 8] rows each event's racks
+                                   # landed in (-1 padded)
+    counts_a: np.ndarray = None    # [B, T, E, 8] racks in each row
+    rows_b: np.ndarray = None      # [B, T, E_b, 8], the refill's
+    counts_b: np.ndarray = None    # [B, T, E_b, 8]
     event_steps: int = 0           # placement steps run (kernel launches)
+    pod_steps: int = 0             # of which pod racks
     device: str = ""               # where the trials ran
 
     def __len__(self):
@@ -185,14 +192,34 @@ def _staged_topology(design: DesignSpec, rows_per_hall: int,
     return _TOPO_CACHE[key]
 
 
+def _pod_geometry(batches) -> Tuple[int, int]:
+    """(max, min) per-trial pod count over a list of `TraceBatch`es: the
+    pod-window length and cluster-window start of the split-pods path.
+    Raises `ValueError` unless pods precede clusters in every trial, as
+    `fleet._event_windows` requires per month."""
+    counts = np.concatenate([b.n_pods.ravel() for b in batches])
+    for b in batches:
+        ip = np.asarray(b.is_pod)
+        if np.any(ip[:, 1:] & ~ip[:, :-1]):
+            raise ValueError(
+                "split-pods scan needs pod events to precede cluster "
+                "events within each trial (the generated-trace order); "
+                "use legacy_pod_cond=True for unordered traces")
+    return int(counts.max()), int(counts.min())
+
+
 def _mc_prepare(axes: MCAxes, n_trials: int, n_events: int, year: int,
                 scenario: str, gpu_power_share: float, pod_racks: int,
                 quantum_racks: int, la_fraction: float,
-                single_sku_gpu: bool, refill_events: int | None, device):
+                single_sku_gpu: bool, refill_events: int | None, device,
+                legacy_pod_cond: bool = False):
     """Host-side staging: the padded topologies repeated per trial, the
     fill and refill traces, each trial's key and policy, all flattened to
-    one (configuration × trial) axis N = B·T on `device`.  Returns (jt,
-    ta, tb, keys, policy).
+    one (configuration × trial) axis N = B·T on `device`, and the
+    placement mode's keywords for `run_trial` (`with_pods`; on the
+    split-pods path the windows, bucketed to 4 as `repro` buckets them,
+    pod window up and cluster start down, `pod_scan_len` and `hd_scan`).
+    Returns ((jt, ta, tb, keys, policy), mode).
 
     Refill traces draw from the phase-1 stream of the configuration's own
     seed (`sample_mixed_traces(phase=1)`), fill traces from phase 0; trial
@@ -201,8 +228,8 @@ def _mc_prepare(axes: MCAxes, n_trials: int, n_events: int, year: int,
     T = int(n_trials)
     R_pad = max(d.n_rows for d in axes.designs)
     X_pad = max(d.n_lineups for d in axes.designs)
-    jt = pl.topology([_staged_topology(d, R_pad, X_pad)
-                      for d in axes.designs], device)
+    staged = [_staged_topology(d, R_pad, X_pad) for d in axes.designs]
+    jt = pl.topology(staged, device)
     jt = Topology(*(x.repeat_interleave(T, dim=0) for x in jt))
 
     E_b = refill_events or max(200, n_events // 3)
@@ -216,13 +243,27 @@ def _mc_prepare(axes: MCAxes, n_trials: int, n_events: int, year: int,
            for s, kw in zip(axes.seeds, axes.sku_kw)]
     tbs = [gen(T, E_b, seed=s, phase=1, sku_kw_override=kw)
            for s, kw in zip(axes.seeds, axes.sku_kw)]
-    if any(bool(t.is_pod.any()) for t in tas + tbs):
-        raise NotImplementedError(_PODS_TODO)
+    with_pods = any(bool(t.is_pod.any()) for t in tas + tbs)
+    mode = dict(with_pods=with_pods)
+    if with_pods and not legacy_pod_cond:
+        wa, sa = _pod_geometry(tas)
+        wb, sb = _pod_geometry(tbs)
+
+        def bucket(n, E):
+            return min(-(-n // 4) * 4, E)
+
+        mode.update(
+            split_pods=True,
+            pod_windows=(bucket(wa, n_events), bucket(wb, E_b)),
+            cluster_starts=(sa // 4 * 4, sb // 4 * 4),
+            pod_scan_len=min(max(t.max_pod_racks for t in tas + tbs),
+                             pl.MAX_POD_RACKS),
+            hd_scan=max(t.n_hd_rows for t in staged))
     keys = prng.split(prng.prng_key(axes.seeds, device), T).reshape(-1, 2)
     policy = pl.policy_tensor([p for p in axes.policies for _ in range(T)],
                               device)
     return (jt, TraceArrays.from_batches(tas, device),
-            TraceArrays.from_batches(tbs, device), keys, policy)
+            TraceArrays.from_batches(tbs, device), keys, policy), mode
 
 
 def _mc_finalize(out, axes: MCAxes, models=None, year: int = 2028,
@@ -280,23 +321,25 @@ def mc_sweep(axes: MCAxes, n_trials: int = 32, n_events: int = 600,
     Topologies are padded to the batch's common (rows, line-ups) shape;
     padding rows have zero capacity and padded line-ups are inactive, so
     real-row results are unchanged and `result(i)` strips the padding.
-    The run takes ``n_events + refill_events`` event steps, each one
-    placement-score launch.
+    A pod-free run takes ``n_events + refill_events`` placement steps,
+    each one placement-score launch; a pod adds one step per rack
+    (`event_steps` counts them all, `pod_steps` the pods').
 
     Args:
         axes: the configuration batch (see `MCAxes`).
         n_trials / n_events: trials per configuration, fill-phase events.
         year / scenario: SKU-projection operating point (all configs).
         gpu_power_share / pod_racks / quantum_racks / la_fraction: trace
-            mix parameters (`arrivals.sample_mixed_traces`); traces with
-            pods (``pod_racks > 1``) are not ported.
+            mix parameters (`arrivals.sample_mixed_traces`); pod traces
+            (``pod_racks > 1``) run the split-pods path.
         harvest: apply the §5.2 harvest between fill and refill.
         single_sku_gpu: Fig. 6 mode: GPU-only events at each
             configuration's `sku_kw` override.
         refill_events: refill-phase event count (default
             ``max(200, n_events // 3)``).
-        legacy_pod_cond: `repro`'s per-event pod cond; pod-free traces
-            place identically either way, so it changes nothing here.
+        legacy_pod_cond: place a pod trace's events through the
+            per-event cond instead of the split-pods windows (the same
+            results; the reference path of `mc_pod_speedup`).
         models: Table 2 models (objects or names) for the per-trial
             $/performance columns (default `throughput.MODEL_SUITE`;
             `()` skips the stage).
@@ -307,13 +350,13 @@ def mc_sweep(axes: MCAxes, n_trials: int = 32, n_events: int = 600,
     """
     dev = resolve_device(device)
     B, T = len(axes), int(n_trials)
-    jt, ta, tb, keys, policy = _mc_prepare(
+    (jt, ta, tb, keys, policy), mode = _mc_prepare(
         axes, n_trials, n_events, year, scenario, gpu_power_share,
         pod_racks, quantum_racks, la_fraction, single_sku_gpu,
-        refill_events, dev)
+        refill_events, dev, legacy_pod_cond)
     state, res_a, res_b = run_trial(jt, pl.init_state(jt), ta, tb, policy,
                                     keys, harvest=harvest,
-                                    interpret=interpret)
+                                    interpret=interpret, **mode)
     out = (pl.lineup_stranding(jt, state), pl.hall_stranding(jt, state)[:, 0],
            pl.deployed_kw(state), res_b.saturated, res_a.placed,
            res_b.placed)
@@ -322,7 +365,11 @@ def mc_sweep(axes: MCAxes, n_trials: int = 32, n_events: int = 600,
                        scenario=scenario,
                        gpu_share=1.0 if single_sku_gpu else gpu_power_share,
                        pod_racks=pod_racks)
-    res.event_steps = ta.rack_kw.shape[0] + tb.rack_kw.shape[0]
+    res.rows_a, res.counts_a, res.rows_b, res.counts_b = (
+        x.cpu().numpy().reshape((B, T) + x.shape[1:])
+        for x in (res_a.rows, res_a.counts, res_b.rows, res_b.counts))
+    res.event_steps = res_a.steps + res_b.steps
+    res.pod_steps = res_a.pod_steps + res_b.pod_steps
     res.device = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                   else "cpu")
     return res

@@ -1,17 +1,20 @@
 """Hierarchical multi-resource placement, batched over configurations.
 
-The counterpart of `repro.core.placement` for single-row clusters.  Where
-`repro` writes one hall state and `vmap`s it, the port writes every array
-with an explicit leading batch axis N (one configuration each) and runs
-one placement step for all N at once; the placement-score kernel scores
-all N·R rows in one launch.
+The counterpart of `repro.core.placement`.  Where `repro` writes one hall
+state and `vmap`s it, the port writes every array with an explicit
+leading batch axis N (one configuration each) and runs one placement
+step for all N at once; the placement-score kernel scores all N·R rows
+(or the N·K rows of a row subset) in one launch.
 
 Feasibility (Eq. 26): a placement is admitted iff the row (power, air,
 liquid, tiles), its feeding line-ups (power under redundancy) and the
 hall (liquid plant) all retain capacity.  Policies (paper §4.2):
 random, round-robin, min-waste and variance-minimisation.  The random
 policy scores rows by the Threefry draws of `prng.uniform`, which its
-callers compute ahead of their event loops and pass in.
+callers compute ahead of their event loops and pass in.  A GPU pod
+(`_place_pod`) lands rack by rack in one power domain and commits all
+its racks or none; its row search may run on the HD-compacted row view
+(`row_subset`), which is bitwise the full search.
 
 Every float32 operation is the reference's, in its order, so chosen rows,
 `ok` flags and state leaves agree with `repro` bitwise.  State updates
@@ -48,7 +51,10 @@ class Topology(NamedTuple):
     row_feeds: torch.Tensor         # [N, R, MAX_FEEDS] i32, -1 padded
     row_nfeeds: torch.Tensor        # [N, R] i32
     row_is_hd: torch.Tensor         # [N, R] bool
+    row_domain: torch.Tensor        # [N, R] i64: global power domain
     row_hall: torch.Tensor          # [N, R] i64 (an index)
+    hd_index: torch.Tensor          # [N, R] i64: HD row ids first
+                                    # (ascending), then the rest
     lineup_cap: torch.Tensor        # [N, X] f32
     lineup_is_active: torch.Tensor  # [N, X] bool
     lineup_hall: torch.Tensor       # [N, X] i32
@@ -67,15 +73,20 @@ class HallState(NamedTuple):
 
 
 class Deployment(NamedTuple):
-    """One arrival per configuration: a same-SKU single-row cluster."""
+    """One arrival per configuration: a same-SKU cluster (one row) or a
+    GPU pod (racks may span rows within one power domain)."""
     rack_kw: torch.Tensor   # [N] f32 per-rack power
     n_racks: torch.Tensor   # [N] i32
     is_gpu: torch.Tensor    # [N] bool
     tier: torch.Tensor      # [N] i32 (0 = HA, 1 = LA)
+    is_pod: torch.Tensor    # [N] bool
 
 
 def topology(topos: Sequence, device) -> Topology:
-    """Stack host `HallTopology`s of one shape into a device `Topology`."""
+    """Stack host `HallTopology`s of one shape into a device `Topology`.
+    `hd_index` is the stable ``argsort(~row_is_hd)``, as `repro` orders
+    it: HD rows keep their ascending ids, so an argmin over the compacted
+    HD view breaks ties as the full-row argmin does."""
     def stack(fn, dtype):
         return torch.as_tensor(np.stack([np.asarray(fn(t)) for t in topos]),
                                dtype=dtype, device=device)
@@ -85,7 +96,10 @@ def topology(topos: Sequence, device) -> Topology:
         row_feeds=stack(lambda t: t.row_feeds, torch.int32),
         row_nfeeds=stack(lambda t: t.row_nfeeds, torch.int32),
         row_is_hd=stack(lambda t: t.row_is_hd, torch.bool),
+        row_domain=stack(lambda t: t.row_domain, torch.int64),
         row_hall=stack(lambda t: t.row_hall, torch.int64),
+        hd_index=stack(lambda t: np.argsort(~np.asarray(t.row_is_hd),
+                                            kind="stable"), torch.int64),
         lineup_cap=stack(lambda t: t.lineup_cap, torch.float32),
         lineup_is_active=stack(lambda t: t.lineup_is_active, torch.bool),
         lineup_hall=stack(lambda t: t.lineup_hall, torch.int32),
@@ -137,17 +151,21 @@ def policy_tensor(policies, device) -> torch.Tensor:
 
 
 def random_draws(keys: torch.Tensor, random: torch.Tensor, n_steps: int,
-                 n_rows: int):
-    """The random policy's scores for `n_steps` event steps: ``[n_steps,
-    N, n_rows]``, step i of configuration n being ``uniform(fold_in(
-    keys[n], i), n_rows)``, as `repro` draws them per event.  Only the
-    configurations marked in `random` ([N] bool, on the host) are drawn,
-    in one batched pass; the others' rows stay 0, which their policies
-    never read.  None when no configuration is random."""
+                 n_rows: int, offset=None):
+    """The random policy's scores for `n_steps` steps: ``[n_steps, N,
+    n_rows]``, step i of configuration n being ``uniform(fold_in(
+    keys[n], offset[n] + i), n_rows)``, as `repro` draws them per event
+    (per pod rack, under the event's key).  `offset` ([N] ints, default
+    0) continues the count where an earlier window of the same key left
+    off.  Only the configurations marked in `random` ([N] bool, on the
+    host) are drawn, in one batched pass; the others' rows stay 0, which
+    their policies never read.  None when no configuration is random."""
     if not bool(random.any()):
         return None
     idx = torch.nonzero(random).flatten().to(keys.device)
     steps = torch.arange(n_steps, device=keys.device)[:, None]
+    if offset is not None:
+        steps = steps + torch.as_tensor(offset, device=keys.device)[idx]
     out = torch.zeros((n_steps, keys.shape[0], n_rows), dtype=torch.float32,
                       device=keys.device)
     out[:, idx] = prng.uniform(prng.fold_in(keys[idx][None], steps), n_rows)
@@ -178,6 +196,46 @@ def _demand(dep: Deployment, n_in_row) -> _Demand:
     return _Demand(n, n * dep.rack_kw, d, n[:, None] * d)
 
 
+class RowSubset(NamedTuple):
+    """A row subset searched in place of every row, as `repro`'s `rows`
+    argument: `rows` ([N, K] full row ids), `jt` the topology with its
+    row-axis leaves gathered at `rows` (made once per run: the subset is
+    fixed), and `n_rows`, the full row count R."""
+    rows: torch.Tensor
+    jt: Topology
+    n_rows: int
+
+
+_ROW_LEAVES = ("row_cap", "row_feeds", "row_nfeeds", "row_is_hd",
+               "row_domain", "row_hall")
+
+
+def _take_rows(x: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``x[n, rows[n]]`` for every configuration n: [N, R, ...] → [N, K,
+    ...]."""
+    idx = rows.reshape(rows.shape + (1,) * (x.dim() - 2))
+    return x.gather(1, idx.expand(rows.shape + x.shape[2:]))
+
+
+def row_subset(jt: Topology, rows: torch.Tensor) -> RowSubset:
+    """The `RowSubset` of `jt` at `rows` ([N, K] row ids).  Every
+    consumer computes per-row quantities elementwise, so the gathered
+    view yields bitwise the values the full computation gives at those
+    rows."""
+    return RowSubset(rows, jt._replace(**{
+        f: _take_rows(getattr(jt, f), rows) for f in _ROW_LEAVES}),
+        jt.row_cap.shape[1])
+
+
+def hd_subset(jt: Topology, hd_scan: int) -> RowSubset:
+    """The HD-compacted row view ``hd_index[:, :hd_scan]`` that pod scans
+    search.  GPU racks fit only HD rows (`_row_fits`), so with `hd_scan`
+    ≥ every configuration's HD-row count the view holds every row a pod
+    rack can take; a design with fewer HD rows fills it with LD or
+    padding rows, which a GPU rack cannot take either."""
+    return row_subset(jt, jt.hd_index[:, :hd_scan])
+
+
 def _row_fits(jt: Topology, state: HallState, dep: Deployment,
               dem: _Demand) -> torch.Tensor:
     """Row/hall constraints outside the line-up power condition: the
@@ -202,22 +260,31 @@ def _kernel_feas_scores(jt: Topology, state: HallState, dep: Deployment,
 
 
 def row_scores(jt: Topology, state: HallState, dep: Deployment, n_in_row,
-               policy, var, rand=None) -> torch.Tensor:
+               policy, var, rand=None, subset: RowSubset | None = None
+               ) -> torch.Tensor:
     """[N, R] placement score (lower is better) under each configuration's
     policy (`policy_tensor`).  `var` is the kernel's variance column; it is
     `BIG` at kernel-infeasible rows, which the caller's feasibility mask
     sends to `BIG` anyway.  `rand` ([N, R], `prng.uniform` of this step's
     keys) is the random policy's column: pass it whenever a configuration
-    runs that policy, whose rows would otherwise score `var`."""
+    runs that policy, whose rows would otherwise score `var`.
+
+    With `subset`, `jt`, `state.row_load`, `var` and `rand` are the
+    subset's [N, K] views and the scores are the full-row scores at those
+    rows: the round-robin distance keeps full row ids modulo the full R,
+    and the caller gathers `rand` from the full-R draws, as `repro`
+    does."""
     P = n_in_row.float() * dep.rack_kw
-    R = jt.row_cap.shape[1]
     cap = jt.row_cap[..., POWER]
     # structural preference: non-GPU racks go to LD rows when possible
     base = torch.where(jt.row_is_hd & ~dep.is_gpu[:, None], _LD_PREFERENCE,
                        0.0)
-    row_ids = torch.arange(R, device=cap.device)
-    rr = torch.remainder(row_ids[None, :] - state.rr_cursor[:, None],
-                         R).float() / R
+    if subset is None:
+        R = jt.row_cap.shape[1]
+        row_ids = torch.arange(R, device=cap.device)[None, :]
+    else:
+        R, row_ids = subset.n_rows, subset.rows
+    rr = torch.remainder(row_ids - state.rr_cursor[:, None], R).float() / R
     waste = (cap - state.row_load[..., POWER] - P[:, None]) / \
         torch.clamp(cap, min=1.0)
     pol = policy[:, None]
@@ -258,7 +325,7 @@ def _apply_to_row(jt: Topology, state: HallState, dep: Deployment,
 
 def place_in_row(jt: Topology, state: HallState, dep: Deployment, n_in_row,
                  policy, row_active, score_bias=None, live=None, rand=None,
-                 interpret: bool = False):
+                 subset: RowSubset | None = None, interpret: bool = False):
     """Place `n_in_row` racks ([N]) into the best feasible active row of
     every configuration.  Returns (state', ok [N], row [N], -1 where not
     ok).
@@ -272,20 +339,39 @@ def place_in_row(jt: Topology, state: HallState, dep: Deployment, n_in_row,
     `row_scores`).  One placement-score launch computes the line-up power
     condition and the variance score for all N·R rows.
 
+    `subset` (a `RowSubset`) restricts the search to its rows:
+    feasibility, scores, `row_active`, `score_bias` and `rand` are taken
+    at the subset and the winning slot maps back to its full row id; the
+    launch then covers N·K rows.  When the subset holds every feasible
+    row (the HD-compacted pod scan: GPU racks are HD-only) the result is
+    bitwise the full search's.
+
     Ties between equal scores go to the lowest row index, as
-    `jnp.argmin` breaks them (`torch.argmin` returns the first minimum)."""
+    `jnp.argmin` breaks them (`torch.argmin` returns the first minimum);
+    a subset ascending within its feasible rows keeps that order."""
+    view, st = jt, state
+    if subset is not None:
+        view = subset.jt
+        st = state._replace(row_load=_take_rows(state.row_load, subset.rows))
+        row_active = row_active.gather(1, subset.rows)
+        if score_bias is not None:
+            score_bias = score_bias.gather(1, subset.rows)
+        if rand is not None:
+            rand = rand.gather(1, subset.rows)
     dem = _demand(dep, n_in_row)
-    kfeas, var = _kernel_feas_scores(jt, state, dep, dem.P, interpret)
-    feas = _row_fits(jt, state, dep, dem) & kfeas & row_active
-    score = row_scores(jt, state, dep, n_in_row, policy, var, rand)
+    kfeas, var = _kernel_feas_scores(view, st, dep, dem.P, interpret)
+    feas = _row_fits(view, st, dep, dem) & kfeas & row_active
+    score = row_scores(view, st, dep, n_in_row, policy, var, rand, subset)
     if score_bias is not None:
         score = score + score_bias
     slot = torch.argmin(torch.where(feas, score, _BIG), dim=1)
     ok = feas.gather(1, slot[:, None])[:, 0]
     if live is not None:
         ok = ok & live
-    new_state = _apply_to_row(jt, state, dep, dem, slot)
-    return _tree_where(ok, new_state, state), ok, torch.where(ok, slot, -1)
+    row = slot if subset is None else \
+        subset.rows.gather(1, slot[:, None])[:, 0]
+    new_state = _apply_to_row(jt, state, dep, dem, row)
+    return _tree_where(ok, new_state, state), ok, torch.where(ok, row, -1)
 
 
 def place_cluster_in_row(jt: Topology, state: HallState, dep: Deployment,
@@ -305,6 +391,85 @@ def place_cluster_in_row(jt: Topology, state: HallState, dep: Deployment,
                          device=row.device)
     counts[:, 0] = torch.where(ok, dep.n_racks.float(), 0.0)
     return st, ok, rows, counts, row
+
+
+def _place_pod(jt: Topology, state: HallState, dep: Deployment, policy,
+               row_active, live=None, max_racks: int = MAX_POD_RACKS,
+               subset: RowSubset | None = None, rand=None,
+               interpret: bool = False):
+    """Place a GPU pod of `dep.n_racks` racks in every live configuration,
+    rack by rack, all racks in one power domain (cross-row cables, paper
+    §4.1), committed atomically.  Returns (state', ok [N], rows [N,
+    MAX_POD_RACKS], counts [N, MAX_POD_RACKS]): the row of each rack and
+    1.0 per landed rack where the pod landed whole, else -1 and 0 and the
+    entry state.
+
+    Rack i is one `place_in_row` of one rack over the whole batch, live
+    where ``i < n_racks`` and `live`: a configuration's steps past its
+    own pod size neither commit nor clear its `ok`.  The first rack that
+    lands fixes the domain (`row_domain` of its full row id); later racks
+    search only that domain.  `max_racks` (on the host) must be ≥ every
+    live configuration's `n_racks`; rack steps past it would change
+    nothing and are not run.  `subset` is the rack search's row view
+    (`hd_subset`), `rand` the racks' draws, ``[≥ max_racks, N, R]``, rack
+    i of configuration n keyed by ``fold_in(event key, i)``."""
+    N = dep.n_racks.shape[0]
+    dev = dep.n_racks.device
+    live = torch.ones(N, dtype=torch.bool, device=dev) if live is None \
+        else live
+    one = torch.ones(N, dtype=torch.int32, device=dev)
+    all_ok = torch.ones(N, dtype=torch.bool, device=dev)
+    dom = torch.full((N,), -1, dtype=torch.int64, device=dev)
+    rows = torch.full((N, MAX_POD_RACKS), -1, dtype=torch.int64, device=dev)
+    st = state
+    for i in range(min(max_racks, MAX_POD_RACKS)):
+        live_i = live & (dep.n_racks > i)
+        active = row_active & ((dom < 0)[:, None]
+                               | (jt.row_domain == dom[:, None]))
+        st, ok, row = place_in_row(
+            jt, st, dep, one, policy, active, live=live_i,
+            rand=None if rand is None else rand[i], subset=subset,
+            interpret=interpret)
+        all_ok = all_ok & (ok | ~live_i)
+        landed = jt.row_domain.gather(1, row.clamp(min=0)[:, None])[:, 0]
+        dom = torch.where(ok & (dom < 0), landed, dom)
+        rows[:, i] = row
+    ok = all_ok & live
+    counts = torch.where((rows >= 0) & ok[:, None], 1.0, 0.0)
+    rows = torch.where(ok[:, None], rows, -1)
+    return _tree_where(ok, st, state), ok, rows, counts
+
+
+def place(jt: Topology, state: HallState, dep: Deployment, policy,
+          row_active, live=None, rand=None, pod_rand=None,
+          max_racks: int = MAX_POD_RACKS, interpret: bool = False):
+    """Place one arrival per configuration, cluster or pod: `repro`'s
+    ``lax.cond(is_pod, …)``, which `vmap` evaluates on both sides and
+    selects by each configuration's `is_pod`.  Here the cluster branch
+    places the live non-pod configurations and the pod branch (a full-row
+    `_place_pod`, `max_racks` rack steps on the host; 0 when no live
+    configuration holds a pod) the live pods; the two sets are disjoint,
+    so one runs after the other on one state.  `rand` is the event's
+    draws ([N, R]), `pod_rand` its racks' (see `_place_pod`).
+
+    Returns (state', ok, rows [N, MAX_POD_RACKS], counts [N,
+    MAX_POD_RACKS]), the registry that harvesting and decommissioning
+    read."""
+    N = dep.n_racks.shape[0]
+    if live is None:
+        live = torch.ones(N, dtype=torch.bool, device=dep.n_racks.device)
+    st, ok, rows, counts, _ = place_cluster_in_row(
+        jt, state, dep, policy, row_active, live=live & ~dep.is_pod,
+        rand=rand, interpret=interpret)
+    if max_racks > 0:
+        st, ok_p, rows_p, counts_p = _place_pod(
+            jt, st, dep, policy, row_active, live=live & dep.is_pod,
+            max_racks=max_racks, rand=pod_rand, interpret=interpret)
+        pod = dep.is_pod[:, None]
+        ok = torch.where(dep.is_pod, ok_p, ok)
+        rows = torch.where(pod, rows_p, rows)
+        counts = torch.where(pod, counts_p, counts)
+    return st, ok, rows, counts
 
 
 def release_bulk(jt: Topology, state: HallState, rows, counts, rack_kw,
@@ -373,6 +538,43 @@ def release_bulk(jt: Topology, state: HallState, rows, counts, rack_kw,
         state.lineup_tot - lineup_tot_rel.view(N, X).to(dev),
         state.hall_liq - hall_rel.view(N, H).to(dev),
         state.rr_cursor)
+
+
+def remove_from_row(jt: Topology, state: HallState, rack_kw, is_gpu, tier,
+                    row, n_racks=1, fraction=1.0) -> HallState:
+    """Release `fraction` of `n_racks` racks' demand from `row` ([N]
+    valid row ids) in every configuration (harvest / decommission, paper
+    §4.1): `repro`'s `remove_from_row`, batched.  `rack_kw`, `is_gpu`
+    and `tier` are [N]; `n_racks` and `fraction` are scalars or [N].
+    Like `_apply_to_row`, each write hits one address per configuration,
+    or a row's feed slots with equal values."""
+    N = row.shape[0]
+    dev = row.device
+    n = (torch.as_tensor(n_racks, dtype=torch.float32, device=dev)
+         * torch.as_tensor(fraction, dtype=torch.float32, device=dev)
+         ).expand(N)
+    d = rack_demand(rack_kw, is_gpu)                            # [N, 4]
+    P = n * rack_kw
+    ar = torch.arange(N, device=dev)
+    row_load = state.row_load.clone()
+    row_load[ar, row] = state.row_load[ar, row] + (-n)[:, None] * d
+
+    feeds = jt.row_feeds[ar, row].long()                        # [N, F]
+    slot = torch.where(feeds >= 0, feeds, feeds[:, :1].clamp(min=0))
+    nf = torch.clamp(jt.row_nfeeds[ar, row], min=1).float()
+    share = (P / nf)[:, None].expand_as(slot)
+    is_ha = torch.as_tensor(tier, device=dev) == TIER_HA
+    ha_share = torch.where(is_ha[:, None], share, 0.0)
+    lineup_ha = state.lineup_ha.scatter(
+        1, slot, state.lineup_ha.gather(1, slot) + (-ha_share))
+    lineup_tot = state.lineup_tot.scatter(
+        1, slot, state.lineup_tot.gather(1, slot) + (-share))
+
+    hall = jt.row_hall[ar, row]
+    hall_liq = state.hall_liq.clone()
+    hall_liq[ar, hall] = state.hall_liq[ar, hall] + (-n) * d[:, LIQ]
+    return HallState(row_load, lineup_ha, lineup_tot, hall_liq,
+                     state.rr_cursor)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,10 @@
 """Batched fleet-sweep engine (paper §5–6 evaluation methodology).
 
-The counterpart of `repro.core.sweep` for pod-free grids.  Every
-configuration's topology is padded to a common shape, traces are padded
-to a common event count, and `fleet.simulate_lifecycle` runs the whole
-`SweepAxes` batch on one device as one batched state:
+The counterpart of `repro.core.sweep`.  Every configuration's topology
+is padded to a common shape, traces are padded to a common event count,
+and `fleet.simulate_lifecycle` runs the whole `SweepAxes` batch on one
+device as one batched state (grids with GPU pods through the split-trace
+windows, or the per-event cond with ``legacy_pod_cond=True``):
 
     axes = SweepAxes.product(designs=[get_design("4N/3"), get_design("3+1")],
                              envs=[EnvelopeSpec(gpu_scenario=s)
@@ -26,8 +27,8 @@ import torch
 
 from . import cost, placement as pl, throughput as tp
 from .arrivals import EnvelopeSpec, Trace, generate_fleet_trace
-from .fleet import (_PODS_TODO, FleetResult, FleetTrace, _auto_halls,
-                    _event_windows, _month_e_max, make_fleet_result,
+from .fleet import (FleetResult, FleetTrace, _auto_halls, _event_windows,
+                    _month_e_max, _pod_scan_len, make_fleet_result,
                     simulate_lifecycle)
 from .hierarchy import DesignSpec, SweepValidationError, build_topology
 from .placement import DEFAULT_POLICY, POLICY_NAMES
@@ -152,8 +153,11 @@ class SweepResult:
     dollars_per_tps: np.ndarray = None       # [B, Mdl] capex / delivered TPS
     # --- the port's own: registry and run facts ---
     act_month: np.ndarray = None   # [B, H_max] hall opening month (-1)
-    reg_rows: np.ndarray = None    # [B, E_max] row each event landed in
+    reg_rows: np.ndarray = None    # [B, E_max, 8] rows each event's racks
+                                   # landed in (-1 padded)
+    reg_counts: np.ndarray = None  # [B, E_max, 8] racks in each row
     event_steps: int = 0           # placement steps run (kernel launches)
+    pod_steps: int = 0             # of which pod racks
     device: str = ""               # where the lifecycle ran
 
     def __len__(self):
@@ -183,12 +187,18 @@ class SweepResult:
 
 
 def _prepare(axes: SweepAxes, n_halls_max: int,
-             traces: Sequence[Trace] | None, device):
+             traces: Sequence[Trace] | None, device,
+             legacy_pod_cond: bool = False):
     """Host-side batch assembly: pads every configuration to common
     shapes, bucketed as `repro` buckets them (hall cap to 4, trace events
-    to 64, per-month event windows to 4; rows/line-ups per hall to the
-    largest design).  Returns (jt, ft, idx, valid, h_caps, n_real, months,
-    topos, X_pad)."""
+    to 64, per-month cluster windows to 4; rows/line-ups per hall to the
+    largest design).  Pod grids on the split-trace path add a pod window
+    per month, as long as the largest monthly pod count (not bucketed),
+    the rack-scan length `pod_scan_len` (the largest pod) and `hd_scan`
+    (the largest HD-row count, the compacted pod view).  Returns a
+    namespace of (jt, ft, windows (idx, valid, idx_pod, valid_pod),
+    h_caps, n_real, months, topos, X_pad, with_pods, pod_scan_len,
+    hd_scan)."""
     axes.validate()
     B = len(axes)
     months = axes.envs[0].n_months
@@ -200,8 +210,6 @@ def _prepare(axes: SweepAxes, n_halls_max: int,
         raise SweepValidationError(
             "traces", f"need one trace per configuration: got "
             f"{len(traces)} traces for {B} configurations")
-    if any(bool(np.asarray(t.is_pod).any()) for t in traces):
-        raise NotImplementedError(_PODS_TODO)
 
     def bucket(n, q):
         return int(np.ceil(max(n, 1) / q) * q)
@@ -217,13 +225,21 @@ def _prepare(axes: SweepAxes, n_halls_max: int,
 
     E_max = bucket(max(len(t) for t in traces), 64)
     ft = FleetTrace.from_traces(traces, pad_to=E_max, pad_month=months)
-    e_max = bucket(max(_month_e_max(t, months) for t in traces), 4)
-    windows = [_event_windows(t, months, False, e_max=e_max, modulo=E_max)
-               for t in traces]
-    idx = np.stack([w[0] for w in windows])
-    valid = np.stack([w[1] for w in windows])
-    n_real = [len(t) for t in traces]
-    return jt, ft, idx, valid, h_caps, n_real, months, topos, X_pad
+    with_pods = any(bool(np.asarray(t.is_pod).any()) for t in traces)
+    split = with_pods and not legacy_pod_cond
+    pod_sel = [np.asarray(t.is_pod) for t in traces]
+    e_max = bucket(max(_month_e_max(t, months, select=~p if split else None)
+                       for t, p in zip(traces, pod_sel)), 4)
+    ep_max = (max(_month_e_max(t, months, select=p)
+                  for t, p in zip(traces, pod_sel)) if split else 1)
+    windows = [_event_windows(t, months, split, e_max=e_max, ep_max=ep_max,
+                              modulo=E_max) for t in traces]
+    return SimpleNamespace(
+        jt=jt, ft=ft, windows=[np.stack(w) for w in zip(*windows)],
+        h_caps=h_caps, n_real=[len(t) for t in traces], months=months,
+        topos=topos, X_pad=X_pad, with_pods=with_pods,
+        pod_scan_len=_pod_scan_len(traces),
+        hd_scan=max(t.n_hd_rows for t in topos))
 
 
 def serving_tpw_rows(envs: Sequence[EnvelopeSpec],
@@ -319,22 +335,28 @@ def _finalize(out, axes: SweepAxes, months: int, topos, X_pad: int,
         dollars_per_tps=dpt,
         act_month=host["act_month"],
         reg_rows=host["reg_rows"],
+        reg_counts=host["reg_counts"],
         event_steps=host["event_steps"],
+        pod_steps=host["pod_steps"],
         device=device,
     )
 
 
 def sweep(axes: SweepAxes, harvest: bool = True, mature_months: int = 12,
           n_halls_max: int = 0, traces: Sequence[Trace] | None = None,
-          models=None, metric_year: int | None = None, device="cuda",
-          interpret: bool = False, exact_quantiles: bool = True
-          ) -> SweepResult:
+          legacy_pod_cond: bool = False, models=None,
+          metric_year: int | None = None, device="cuda",
+          interpret: bool = False, exact_quantiles: bool = True,
+          quantile_bins: int | None = None) -> SweepResult:
     """Evaluate every configuration in `axes` as one batched lifecycle.
 
     All envelopes must share one buildout horizon.  Padding is inert:
     padded rows have zero capacity (never feasible), padded line-ups are
     inactive, and padded trace events arrive after the horizon.
-    `result(i)` recovers the `FleetResult` of configuration `i`.
+    `result(i)` recovers the `FleetResult` of configuration `i`.  Pod
+    traces run the split-trace windows: each month's pods through the
+    attempt/retry pod path, then its clusters through the biased attempt
+    (see `fleet.simulate_lifecycle`).
 
     Args:
         axes: the configuration batch (see `SweepAxes`).
@@ -342,8 +364,10 @@ def sweep(axes: SweepAxes, harvest: bool = True, mature_months: int = 12,
         mature_months: hall age before it enters tail stranding stats.
         n_halls_max: hall cap; 0 auto-sizes per configuration.
         traces: optional pre-generated per-configuration arrival traces
-            (defaults to `generate_fleet_trace(envs[i], seeds[i])`);
-            pod-free only.
+            (defaults to `generate_fleet_trace(envs[i], seeds[i])`).
+        legacy_pod_cond: place every event through the per-event cond
+            and retry instead of the split-trace windows (the reference
+            path of `pod_sweep_speedup`; the same results).
         models: Table 2 models (objects or names) for the $/performance
             metric stage (default `throughput.MODEL_SUITE`; `()` skips
             the stage).
@@ -353,16 +377,23 @@ def sweep(axes: SweepAxes, harvest: bool = True, mature_months: int = 12,
             only when asked for).
         interpret: score rows with the kernel's plain version instead of
             launching the CUDA kernel.
-        exact_quantiles: only `True` is ported (ROADMAP queue 1, item 6).
+        exact_quantiles: `True` (default) takes the exact p50/p90 over
+            each configuration's ``[M, H]`` stranding history; `False`
+            the streaming histogram estimate of each month (error ≤
+            ``1 / quantile_bins``), with no history kept.
+        quantile_bins: the histogram's buckets (default
+            `quantiles.DEFAULT_BINS` = 512); ignored when exact.
     """
     dev = resolve_device(device)
-    jt, ft, idx, valid, h_caps, n_real, months, topos, X_pad = _prepare(
-        axes, n_halls_max, traces, dev)
+    prep = _prepare(axes, n_halls_max, traces, dev, legacy_pod_cond)
     out = simulate_lifecycle(
-        jt, ft, idx, valid, pl.policy_tensor(axes.policies, dev), h_caps,
-        n_real, harvest=harvest, mature_months=mature_months,
-        seeds=axes.seeds, exact_quantiles=exact_quantiles,
+        prep.jt, prep.ft, *prep.windows,
+        pl.policy_tensor(axes.policies, dev), prep.h_caps, prep.n_real,
+        harvest=harvest, mature_months=mature_months, seeds=axes.seeds,
+        with_pods=prep.with_pods, legacy_pod_cond=legacy_pod_cond,
+        pod_scan_len=prep.pod_scan_len, hd_scan=prep.hd_scan,
+        exact_quantiles=exact_quantiles, quantile_bins=quantile_bins,
         interpret=interpret)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    return _finalize(out, axes, months, topos, X_pad, models=models,
-                     metric_year=metric_year, device=name)
+    return _finalize(out, axes, prep.months, prep.topos, prep.X_pad,
+                     models=models, metric_year=metric_year, device=name)

@@ -106,6 +106,32 @@ def test_mc_sweep_on_the_card_equals_the_cpu(cuda):
         np.testing.assert_array_equal(getattr(again, f), getattr(on_cpu, f))
 
 
+@pytest.mark.parametrize("legacy", [False, True])
+def test_pod_fleet_on_the_card_equals_the_cpu(cuda, legacy):
+    """The pod fleet golden (10N/8 with pods of 3, 8+2 with pods of 5,
+    seeds 3 and 4, scale 0.005, each under the four policies), split and
+    through the per-event cond: every registry row and count, halls and
+    placed fraction bitwise the CPU's, one launch per placement step."""
+    combos = [(d, p, s, pol) for pol in range(4)
+              for d, p, s in (("10N/8", 3, 3), ("8+2", 5, 4))]
+    axes = SweepAxes.zip(
+        [hierarchy.get_design(d) for d, *_ in combos],
+        [arrivals.EnvelopeSpec(demand_scale=0.005, gpu_scenario="high",
+                               pod_racks=p, pod_scale_arch=True)
+         for _, p, _, _ in combos],
+        policies=[c[3] for c in combos], seeds=[c[2] for c in combos])
+    on_cpu = sweep(axes, device="cpu", legacy_pod_cond=legacy)
+    before = kernel.placement_score.launches
+    on_card = sweep(axes, device=cuda, legacy_pod_cond=legacy)
+    assert kernel.placement_score.launches - before == on_card.event_steps
+    assert on_card.pod_steps == on_cpu.pod_steps > 0
+    for f in ("reg_rows", "reg_counts", "n_halls_built", "halls_active",
+              "placed_fraction", "deployed_mw", "p90_stranding",
+              "final_hall_stranding"):
+        np.testing.assert_array_equal(getattr(on_card, f), getattr(on_cpu, f),
+                                      err_msg=f)
+
+
 # ---- ssd_scan (Mamba2 SSD intra-chunk kernel) ----
 
 def ssd_inputs(seed, device, B, S, nh, hd, st, dtype):

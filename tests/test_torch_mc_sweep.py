@@ -184,17 +184,81 @@ def test_topology_cache():
     assert t_mc._staged_topology(d, 100, 10) is not e1
 
 
+POD_KW = dict(n_trials=2, n_events=100, year=2030, scenario="high")
+
+
+def pod_axes(mc, h, policies=(3, 3)):
+    """`repro`'s `test_mc_split_pods_matches_legacy_cond` grid."""
+    return mc.MCAxes.zip(designs=[h.get_design("10N/8"),
+                                  h.get_design("3+1")],
+                         seeds=[11, 12], policies=list(policies))
+
+
 @pytest.mark.parametrize("legacy", [False, True])
 def test_pod_traces_raise(legacy):
-    axes = t_mc.MCAxes.zip(designs=[t_hier.get_design("10N/8")])
-    with pytest.raises(NotImplementedError, match="items 4 and 6"):
-        t_mc.mc_sweep(axes, n_trials=2, n_events=50, pod_racks=4,
-                      legacy_pod_cond=legacy, device="cpu")
+    """Pod traces no longer raise: `pod_racks` 4 through the split-pods
+    path and the per-event cond places as `repro`'s split path does."""
+    kw = dict(n_trials=2, n_events=50, pod_racks=4)
+    ref = r_mc.mc_sweep(r_mc.MCAxes.zip(designs=[r_hier.get_design("10N/8")]),
+                        **kw)
+    port = t_mc.mc_sweep(t_mc.MCAxes.zip(designs=[t_hier.get_design("10N/8")]),
+                         legacy_pod_cond=legacy, device="cpu", **kw)
+    for f in FLAGS:
+        np.testing.assert_array_equal(getattr(port, f), getattr(ref, f),
+                                      err_msg=f)
+    assert port.pod_steps > 0
 
 
 def test_fill_phase_with_pods_raises():
-    with pytest.raises(NotImplementedError, match="items 4 and 6"):
-        t_sh._fill_phase(None, None, None, None, None, None, with_pods=True)
+    """`_fill_phase`'s split mode refuses nothing now; the pods-first
+    contract is `_pod_geometry`'s, which raises as `repro`'s does."""
+    t = t_arr.sample_mixed_traces(2, 50, seed=9, pod_racks=3)
+    t.is_pod = np.zeros_like(t.is_pod)
+    t.is_pod[:, 1] = True                     # a cluster before a pod
+    with pytest.raises(ValueError, match="precede"):
+        t_mc._pod_geometry([t])
+
+
+def test_pod_geometry_matches_repro():
+    """`repro`'s `_pod_geometry` contract: (max, min) pod count per trial
+    over the batches, on the same pods-first traces."""
+    for seed, pod in ((9, 5), (3, 3), (4, 7)):
+        a = r_arr.sample_mixed_traces(4, 200, seed=seed, pod_racks=pod)
+        b = t_arr.sample_mixed_traces(4, 200, seed=seed, pod_racks=pod)
+        c = t_arr.sample_mixed_traces(3, 120, seed=seed, phase=1,
+                                      pod_racks=pod)
+        assert t_mc._pod_geometry([b]) == r_mc._pod_geometry([a]) == \
+            (int(b.n_pods.max()), int(b.n_pods.min()))
+        assert t_mc._pod_geometry([b, c]) == (
+            max(int(b.n_pods.max()), int(c.n_pods.max())),
+            min(int(b.n_pods.min()), int(c.n_pods.min())))
+
+
+@pytest.mark.parametrize("policies", [(3, 3), (0, 2)])
+@pytest.mark.parametrize("pod_racks", [3, 7])
+def test_pod_split_and_legacy_match_repro(pod_racks, policies):
+    """`repro`'s split ≡ legacy grids (pods of 3 and 7; var_min, and the
+    random and min-waste policies): the port's split path and its
+    per-event cond give `repro`'s placed and saturated flags bitwise, and
+    each other's every output bitwise, the registries included; stranding and deployed kW to rtol
+    1e-6 (atol 1e-5) of `repro`'s."""
+    kw = dict(POD_KW, pod_racks=pod_racks)
+    ref = r_mc.mc_sweep(pod_axes(r_mc, r_hier, policies), **kw)
+    split = t_mc.mc_sweep(pod_axes(t_mc, t_hier, policies), device="cpu",
+                          **kw)
+    legacy = t_mc.mc_sweep(pod_axes(t_mc, t_hier, policies), device="cpu",
+                           legacy_pod_cond=True, **kw)
+    for f in FLAGS:
+        np.testing.assert_array_equal(split.__dict__[f], np.asarray(
+            getattr(ref, f)), err_msg=f)
+    for f in FLAGS + FLOATS + ("rows_a", "counts_a", "rows_b", "counts_b"):
+        assert getattr(split, f).tobytes() == getattr(legacy, f).tobytes(), f
+    assert (split.counts_a.sum(-1) > 1).any()
+    for f in FLOATS:
+        np.testing.assert_allclose(getattr(split, f), getattr(ref, f),
+                                   rtol=1e-6, atol=1e-5, err_msg=f)
+    assert 0 < split.pod_steps == legacy.pod_steps
+    assert split.event_steps < legacy.event_steps
 
 
 def test_cuda_device_without_a_card_raises():

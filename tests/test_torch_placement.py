@@ -52,7 +52,8 @@ def t_dep(items):
         torch.tensor([i[0] for i in items], dtype=torch.float32),
         torch.tensor([i[1] for i in items], dtype=torch.int32),
         torch.tensor([i[2] for i in items]),
-        torch.tensor([i[3] for i in items], dtype=torch.int32))
+        torch.tensor([i[3] for i in items], dtype=torch.int32),
+        torch.zeros(len(items), dtype=torch.bool))
 
 
 def assert_state_equal(r_state, t_state, n=0):

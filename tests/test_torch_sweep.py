@@ -1,4 +1,5 @@
-"""Parity of the port's pod-free fleet sweep with `repro.core.sweep`.
+"""Parity of the port's pod-free fleet sweep with `repro.core.sweep`
+(pods: `tests/test_torch_pods.py`).
 
 A 4-configuration grid (the four reference designs, three TDP scenarios,
 the three ported policies) at demand_scale 0.005 runs through `repro`'s
@@ -35,6 +36,7 @@ from repro.core import sweep as r_sweep  # noqa: E402
 from repro_torch.core import arrivals as t_arr  # noqa: E402
 from repro_torch.core import fleet as t_fleet  # noqa: E402
 from repro_torch.core import hierarchy as t_hier  # noqa: E402
+from repro_torch.core import placement as t_pl  # noqa: E402
 from repro_torch.core import sweep as t_sweep  # noqa: E402
 
 NAMES = ("4N/3", "3+1", "10N/8", "8+2")
@@ -137,8 +139,9 @@ def reference_registry(monkeypatch, ax=None):
 def test_registry_rows_bitwise(grids, monkeypatch):
     _, port = grids
     rows, placed = reference_registry(monkeypatch)
-    np.testing.assert_array_equal(port.reg_rows >= 0, placed)
-    np.testing.assert_array_equal(port.reg_rows, rows)
+    np.testing.assert_array_equal(port.reg_rows[..., 0] >= 0, placed)
+    np.testing.assert_array_equal(port.reg_rows[..., 0], rows)
+    assert (port.reg_rows[..., 1:] == -1).all()
     assert placed.sum() > 100
 
 
@@ -158,8 +161,8 @@ def test_random_policy_sweep_matches_repro(monkeypatch):
     port = t_sweep.sweep(random_axes(t_hier, t_arr, t_sweep), device="cpu")
     rows, placed = reference_registry(monkeypatch,
                                       random_axes(r_hier, r_arr, r_sweep))
-    np.testing.assert_array_equal(port.reg_rows, rows)
-    np.testing.assert_array_equal(port.reg_rows >= 0, placed)
+    np.testing.assert_array_equal(port.reg_rows[..., 0], rows)
+    np.testing.assert_array_equal(port.reg_rows[..., 0] >= 0, placed)
     np.testing.assert_array_equal(port.n_halls_built, ref.n_halls_built)
     np.testing.assert_array_equal(port.halls_active, ref.halls_active)
     np.testing.assert_array_equal(port.final_hall_stranding,
@@ -201,19 +204,29 @@ def check_run_fleet(policy):
 
 
 def test_unported_paths_raise():
-    env = t_arr.EnvelopeSpec(demand_scale=SCALE)
+    """The paths that raised before the pods and the streaming quantiles
+    were ported now run (pods of 4 racks, split and through the
+    per-event cond, and ``exact_quantiles=False``); a random-policy
+    lifecycle without its seeds still raises."""
     design = t_hier.get_design("4N/3")
-    with pytest.raises(NotImplementedError, match="items 4 and 6"):
-        t_sweep.sweep(t_sweep.SweepAxes.zip(
-            [design], [t_arr.EnvelopeSpec(demand_scale=SCALE, pod_racks=4)]),
-            device="cpu")
-    with pytest.raises(NotImplementedError, match="streaming"):
-        t_sweep.sweep(t_sweep.SweepAxes.zip([design], [env]), device="cpu",
-                      exact_quantiles=False)
-    with pytest.raises(NotImplementedError, match="pods"):
-        t_fleet.simulate_lifecycle(None, None, None, None, None, None, None,
-                                   harvest=True, mature_months=12,
-                                   legacy_pod_cond=True)
+    pods = t_sweep.SweepAxes.zip(
+        [design], [t_arr.EnvelopeSpec(demand_scale=SCALE, pod_racks=4)])
+    split = t_sweep.sweep(pods, device="cpu")
+    legacy = t_sweep.sweep(pods, device="cpu", legacy_pod_cond=True)
+    assert split.pod_steps > 0
+    assert split.reg_rows.tobytes() == legacy.reg_rows.tobytes()
+    env = t_arr.EnvelopeSpec(demand_scale=SCALE)
+    stream = t_sweep.sweep(t_sweep.SweepAxes.zip([design], [env]),
+                           device="cpu", exact_quantiles=False,
+                           quantile_bins=64)
+    assert np.isfinite(stream.p90_stranding[:, -1]).all()
+    prep = t_sweep._prepare(t_sweep.SweepAxes.zip([design], [env]), 0, None,
+                            "cpu")
+    with pytest.raises(ValueError, match="seeds"):
+        t_fleet.simulate_lifecycle(
+            prep.jt, prep.ft, *prep.windows,
+            t_pl.policy_tensor([0], "cpu"), prep.h_caps, prep.n_real,
+            harvest=True, mature_months=12)
 
 
 def test_cuda_device_without_a_card_raises():
