@@ -28,6 +28,18 @@ read just after:
   through `sweep` with exact and with streaming quantiles (one launch
   per cluster and per pod rack); `pod_sweep_speedup`'s and
   `mc_pod_speedup`'s grids, split against `legacy_pod_cond=True`;
+* the metric stage: the streaming histogram's NaN cases (F5) card
+  against CPU; `scenario_frontier` with one envelope per family, card
+  against CPU on every field; then `benchmarks/run.py`'s
+  `scenario_sweep` (3+1, baseline + the four families at their catalog
+  defaults, 15 configurations at scale 0.04), Fig. 18 through
+  `pod_payoff_study` (10N/8 and 8+2 x four models, pods of 1 and 5,
+  scale 0.04) and `metric_stack`'s `design_frontier` (four designs x
+  pods of 1 and 5, scale 0.01), each through `sweep` with one
+  `placement_score` launch per placement step; Fig. 18 and the frontier
+  then run once more on the CPU, every point field equal to the card's,
+  and the kernel is checked at each of their grids' rows and pod views;
+  Table 2 through the per-pair throughput API (host math);
 * Mamba2-2.7B serving: `smoke_config()` served on the CPU and on the card
   (float32), then the full-width model (64 layers, d_model 2560, bf16
   weights drawn from a generator seeded with 0) behind `ServeEngine`
@@ -982,6 +994,351 @@ def mc_pod_pair(dev):
               f"{walls[True][0]:.3f}, {walls[True][1]:.3f} s; flags, "
               f"registries and outputs bitwise equal")
     return launches
+
+
+# ------------------------------------------------------- the metric stage
+
+F5_X = (0.2, float("nan"), 0.7, 0.4)
+F5_CASES = (((True, True, True, True), (0.2998046875, 0.6099609136581421)),
+            ((True, False, True, True), (0.3994140625, 0.6400390863418579)))
+STUDY_SCALE = 0.04        # benchmarks/run.py's SCALE (scenario_sweep, fig18)
+FRONTIER_SCALE = 0.01     # metric_stack's min(SCALE, 0.01)
+TABLE2_RTOL = 1e-6        # float32 reductions: the grid against the loop
+
+
+def check_f5(dev):
+    """The streaming histogram's NaN cases (ROADMAP fault F5): a NaN
+    value, masked in and out, lands in bucket 0 on the card as on the
+    CPU; both bitwise, and equal to `repro`'s values."""
+    import numpy as np
+    import torch
+    from repro_torch.core.quantiles import hist_masked_quantiles
+    x = torch.tensor(F5_X)
+    for keep, want in F5_CASES:
+        m = torch.tensor(keep)
+        on_cpu = hist_masked_quantiles(x, m, (50.0, 90.0))
+        on_card = hist_masked_quantiles(x.to(dev), m.to(dev), (50.0, 90.0))
+        got = [v.cpu().numpy().tobytes() for v in on_card]
+        if got != [v.numpy().tobytes() for v in on_cpu] or \
+                got != [np.float32(w).tobytes() for w in want]:
+            raise AssertionError(f"F5 {keep}: card {on_card}, CPU {on_cpu}, "
+                                 f"want {want}")
+        print(f"F5 check: x={list(F5_X)} mask={list(keep)}: p50, p90 card "
+              f"{[float(v) for v in on_card]} bitwise the CPU's and "
+              f"repro's {list(want)}")
+
+
+def one_per_family(base):
+    """One representative envelope per scenario family, as
+    tests/test_scenarios.py:30-41 builds its shared grid."""
+    from dataclasses import replace
+    from repro_torch.core import scenarios as sc
+    envs = {sc.FAMILY_SHOCK: replace(base, shock_month=18,
+                                     shock_multiplier=1.5),
+            sc.FAMILY_COHORT: replace(base, cohort_window_m=6),
+            sc.FAMILY_MIX: replace(base, mix_end=(0.8, 0.14, 0.06),
+                                   la_fraction=0.3),
+            sc.FAMILY_REFRESH: replace(base, refresh_cycle_m=24)}
+    return {k: sc.ScenarioBatch(k, ("rep",), (e,)) for k, e in envs.items()}
+
+
+def same_points(a, b, what):
+    """Two lists of study points equal field by field, NaN equal to NaN."""
+    import math
+    from dataclasses import astuple
+    if len(a) != len(b):
+        raise AssertionError(f"{what}: {len(a)} points against {len(b)}")
+    for p, q in zip(a, b):
+        for x, y in zip(astuple(p), astuple(q)):
+            nan = isinstance(x, float) and isinstance(y, float) and \
+                math.isnan(x) and math.isnan(y)
+            if x != y and not nan:
+                raise AssertionError(f"{what}: {p} differs from {q}")
+
+
+class StudySweeps:
+    """Launch counting around one study call: zeroes `placement_score`'s
+    count, records the axes and `SweepResult` of every `sweep` the study
+    runs (through `payoff.sweep`), times each sweep's `_prepare` (trace
+    synthesis, batch assembly) and its lifecycle (the placement steps,
+    ended by a synchronize) apart from the rest, and checks one launch
+    per placement step. The study itself runs unchanged."""
+
+    def __init__(self):
+        self.axes, self.results = [], []
+        self.prepare_s = self.steps_s = 0.0
+
+    def _timed(self, fn, attr):
+        import torch
+
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            setattr(self, attr, getattr(self, attr)
+                    + time.perf_counter() - t0)
+            return out
+        return run
+
+    def __enter__(self):
+        import torch
+        from repro_torch.core import payoff, sweep as sweep_mod
+        from repro_torch.kernels.placement_score.kernel import placement_score
+        self._saved = (payoff.sweep, sweep_mod._prepare,
+                       sweep_mod.simulate_lifecycle)
+
+        def sweep(axes, *args, **kw):
+            res = self._saved[0](axes, *args, **kw)
+            self.axes.append(axes)
+            self.results.append(res)
+            return res
+        payoff.sweep = sweep
+        sweep_mod._prepare = self._timed(self._saved[1], "prepare_s")
+        sweep_mod.simulate_lifecycle = self._timed(self._saved[2], "steps_s")
+        placement_score.launches = 0
+        torch.cuda.synchronize()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        from repro_torch.core import payoff, sweep as sweep_mod
+        from repro_torch.kernels.placement_score.kernel import placement_score
+        (payoff.sweep, sweep_mod._prepare,
+         sweep_mod.simulate_lifecycle) = self._saved
+        if exc[0] is not None:
+            return False
+        torch.cuda.synchronize()
+        self.wall = time.perf_counter() - self._t0
+        self.launches = placement_score.launches
+        self.steps = sum(r.event_steps for r in self.results)
+        self.pod_steps = sum(r.pod_steps for r in self.results)
+        if self.launches != self.steps or self.steps == 0:
+            raise AssertionError(f"{self.launches} placement_score launches "
+                                 f"for {self.steps} placement steps")
+        return False
+
+
+def payoff_golden(dev):
+    """`scenario_frontier` on 3+1 at scale 0.005 with one envelope per
+    family, on the CPU and on the card: every `ScenarioPoint` field equal
+    (the sweep is bitwise card ≡ CPU, the metric stage host math)."""
+    from repro_torch.core import hierarchy
+    from repro_torch.core.arrivals import EnvelopeSpec
+    from repro_torch.core.payoff import scenario_frontier
+    base = EnvelopeSpec(demand_scale=GOLDEN_SCALE)
+    fams = one_per_family(base)
+    t0 = time.perf_counter()
+    on_cpu = scenario_frontier(hierarchy.get_design("3+1"), base,
+                               families=fams, device="cpu")
+    t1 = time.perf_counter()
+    with StudySweeps() as run:
+        on_card = scenario_frontier(hierarchy.get_design("3+1"), base,
+                                    families=fams, device=dev)
+    same_points(on_cpu, on_card, "payoff golden (CPU vs card)")
+    print(f"payoff golden: scenario_frontier, 3+1, baseline + one envelope "
+          f"per family at scale {GOLDEN_SCALE}, {run.steps} placement steps"
+          f": CPU {t1 - t0:.2f} s, card {run.wall:.2f} s; every "
+          f"ScenarioPoint field equal; p90 "
+          f"{[p.p90_stranding for p in on_card]}")
+
+
+def check_kernel_scenario_shape(dev):
+    """The kernel check at the scenario grid's padded [15, R] rows."""
+    from repro_torch.core import hierarchy, scenarios
+    from repro_torch.core.arrivals import EnvelopeSpec
+    from repro_torch.core.sweep import _prepare
+    axes = scenarios.frontier_axes([hierarchy.get_design("3+1")],
+                                   base=EnvelopeSpec(demand_scale=STUDY_SCALE))
+    jt = _prepare(axes, 0, None, dev).jt
+    N, R = jt.row_cap.shape[:2]
+    return dict(rows=f"{N}x{R}", **check_kernel(dev, jt,
+                                                "the scenario grid"))
+
+
+def study_runs(study, what):
+    """`study` (a callable returning a list of points) twice under
+    `StudySweeps`, the two held equal, then once profiled: (points, the
+    first run's `StudySweeps`, the profile's line)."""
+    runs = []
+    for _ in range(2):
+        with StudySweeps() as run:
+            pts = study()
+        runs.append((pts, run))
+    same_points(runs[0][0], runs[1][0], f"{what} repeat")
+    wall, busy, n_device, top = profile_run(study)
+    for name, (calls, secs) in top[:5]:
+        print(f"  device {secs:8.4f} s {calls:8d} calls  {name[:90]}")
+    run = runs[0][1]
+    split = "; ".join(
+        f"run {k + 1}: wall {r.wall:.3f} s = prepare {r.prepare_s:.3f} s + "
+        f"steps {r.steps_s:.3f} s ({r.steps_s / r.steps * 1e3:.3f} ms per "
+        f"step) + other {r.wall - r.prepare_s - r.steps_s:.3f} s"
+        for k, (_, r) in enumerate(runs))
+    line = (f"{run.steps} placement steps = launches ({run.pod_steps} pod "
+            f"racks); {split}; repeat equal; profiled: {wall:.3f} s wall, "
+            f"device busy {busy:.3f} s, idle share {1 - busy / wall:.3f}, "
+            f"{n_device} kernels and copies ({n_device / run.steps:.1f} per "
+            f"step)")
+    return runs[0][0], run, line
+
+
+def check_kernel_study_shapes(dev, run, what):
+    """The kernel check at the padded [N, R] rows of every grid a study's
+    run swept, and at its HD-compacted pod view where pods are placed."""
+    from repro_torch.core import placement as pl
+    from repro_torch.core.sweep import _prepare
+    out = {}
+    for k, axes in enumerate(run.axes):
+        prep = _prepare(axes, 0, None, dev)
+        views = {"rows": prep.jt}
+        if prep.with_pods:
+            views["pod view"] = pl.hd_subset(prep.jt, prep.hd_scan).jt
+        for v, jt in views.items():
+            N, R = jt.row_cap.shape[:2]
+            out[f"{what} grid {k + 1} {v}"] = dict(
+                rows=f"{N}x{R}", **check_kernel(
+                    dev, jt, f"{what}'s grid {k + 1} ({v})"))
+    return out
+
+
+def study_golden(card_pts, study, what):
+    """The study once more on the CPU: every point field equal to the
+    card's main-path run (the sweep is bitwise card ≡ CPU, the metric
+    stage host math)."""
+    t0 = time.perf_counter()
+    on_cpu = study("cpu")
+    same_points(on_cpu, card_pts, f"{what} golden (CPU vs card)")
+    print(f"{what} golden: {len(on_cpu)} points, CPU run "
+          f"{time.perf_counter() - t0:.2f} s; every field equal to the "
+          "card's main-path run")
+
+
+def scenario_main_path(dev):
+    """`scenario_sweep` (benchmarks/run.py:949-971): `scenario_frontier`
+    on 3+1 with every family at its catalog defaults around scale 0.04,
+    15 configurations on one grid, metric model MoE-132T."""
+    from repro_torch.core import hierarchy
+    from repro_torch.core.arrivals import EnvelopeSpec
+    from repro_torch.core.payoff import scenario_frontier
+    base = EnvelopeSpec(demand_scale=STUDY_SCALE)
+    pts, run, line = study_runs(lambda: scenario_frontier(
+        hierarchy.get_design("3+1"), base_env=base, device=dev),
+        "scenario_sweep")
+    if len(pts) != 15 or pts[0].family != "baseline":
+        raise AssertionError(f"scenario_sweep: {len(pts)} points")
+    for p in pts:
+        if not (0 <= p.p50_stranding <= p.p90_stranding <= 1) or \
+                p.n_halls < 1 or not p.delivered_tps > 0:
+            raise AssertionError(f"scenario_sweep: {p}")
+    if (pts[0].d_p90, pts[0].d_capex, pts[0].d_dpm) != (0.0, 0.0, 0.0):
+        raise AssertionError("scenario_sweep: the baseline's deltas")
+    for p in pts:
+        print(f"  scenario.{p.family}.{p.label}: p50={p.p50_stranding:.3f};"
+              f"p90={p.p90_stranding:.3f};halls={p.n_halls};"
+              f"dP90={p.d_p90:+.3f};dCapex={p.d_capex:+.3%};"
+              f"d$/MW={p.d_dpm:+.3%}")
+    worst = max(pts, key=lambda p: p.p90_stranding)
+    print(f"scenario_sweep: {len(pts)} configurations at scale "
+          f"{STUDY_SCALE} on {run.results[0].device}; worst p90 "
+          f"{worst.family}:{worst.label}={worst.p90_stranding:.3f}; {line}")
+    return run.launches
+
+
+def fig18_main_path(dev):
+    """Fig. 18 through `pod_payoff_study`: 10N/8 and 8+2, four models,
+    pods of 1 and 5 racks, HIGH, pod-scale racks for both pod sizes (the
+    study's own envelope), scale 0.04, year 2028; one `fleet_cache` per
+    design."""
+    from repro_torch.core import hierarchy, throughput as tp
+    from repro_torch.core.arrivals import EnvelopeSpec
+    from repro_torch.core.payoff import pod_payoff_study
+    env = EnvelopeSpec(demand_scale=STUDY_SCALE, gpu_scenario="high",
+                       pod_scale_arch=True)
+    models = [tp.MODELS[m] for m in ("MoE-0.6T", "MoE-19T", "MoE-132T",
+                                     "MoE-401T")]
+    designs = ("10N/8", "8+2")
+
+    def study(device=dev):
+        pts = []
+        for name in designs:
+            cache = {}
+            pts += pod_payoff_study(
+                hierarchy.get_design(name), models, pod_sizes=(1, 5),
+                env=env, year=2028, fleet_cache=cache, device=device)
+            if sorted(cache) != [1, 5]:
+                raise AssertionError(f"fig18 {name}: cache {sorted(cache)}")
+        return pts
+    pts, run, line = study_runs(study, "fig18")
+    if run.pod_steps == 0:
+        raise AssertionError("fig18: no pod rack was placed")
+    by = {(p.design, p.model, p.pod_racks): p for p in pts}
+    for name in designs:
+        for m in models:
+            p1, p5 = by[(name, m.name, 1)], by[(name, m.name, 5)]
+            if (p1.d_cost, p1.payoff) != (0.0, 0.0) or \
+                    not p5.fleet_tps_per_watt > 0:
+                raise AssertionError(f"fig18 {name} {m.name}: {p1}, {p5}")
+            print(f"  fig18.{name}.{m.name}: dTPS/W={p5.d_tps_per_watt:+.3f};"
+                  f"dCost={p5.d_cost:+.3f};payoff={p5.payoff:+.3f};"
+                  f"fleet_tps_per_w pod1={p1.fleet_tps_per_watt:.4f} "
+                  f"pod5={p5.fleet_tps_per_watt:.4f}")
+    print(f"fig18: pod_payoff_study, 2 designs x pods (1, 5) at scale "
+          f"{STUDY_SCALE}, HIGH, pod_scale_arch=True for both pod sizes; "
+          f"{line}")
+    study_golden(pts, study, "fig18")
+    return run.launches, check_kernel_study_shapes(dev, run, "fig18")
+
+
+def frontier_main_path(dev):
+    """`metric_stack`'s design frontier (benchmarks/run.py:1004-1015):
+    the four designs x pods (1, 5) at scale 0.01, HIGH, MoE-132T."""
+    from repro_torch.core import throughput as tp
+    from repro_torch.core.arrivals import EnvelopeSpec
+    from repro_torch.core.payoff import design_frontier
+    env = EnvelopeSpec(demand_scale=FRONTIER_SCALE, gpu_scenario="high")
+
+    def study(device=dev):
+        return design_frontier(base_env=env, models=[tp.MODELS["MoE-132T"]],
+                               device=device)
+    pts, run, line = study_runs(study, "design frontier")
+    front = sorted((p for p in pts if not p.dominated),
+                   key=lambda p: p.total_capex)
+    if len(pts) != 8 or not front:
+        raise AssertionError(f"design frontier: {len(pts)} points, "
+                             f"{len(front)} on the front")
+    for p in pts:
+        print(f"  frontier.{p.design}.pod{p.pod_racks}: halls={p.n_halls};"
+              f"tps={p.delivered_tps:.6g};capex=${p.total_capex / 1e6:.2f}M;"
+              f"$/tps={p.dollars_per_tps:.2f};dominated={p.dominated}")
+    print(f"design frontier: n_points={len(pts)};n_pareto={len(front)};"
+          f"best={front[0].design}:pod{front[0].pod_racks}"
+          f"=${front[0].dollars_per_tps:.2f}/tps; {line}")
+    study_golden(pts, study, "design frontier")
+    return run.launches, check_kernel_study_shapes(dev, run, "frontier")
+
+
+def table2():
+    """Table 2 through the per-pair API (benchmarks/run.py:331-341) on
+    Kyber 2028 racks, MED: host math; the [1, M] grid against the scalar
+    loop within TABLE2_RTOL."""
+    import numpy as np
+    from repro_torch.core import projections as proj, throughput as tp
+    d = tp.Deployment(proj.KYBER, 2028, 1, proj.MED)
+    loop = []
+    for m in tp.MODEL_SUITE:
+        t = float(tp.tps_request(m, d))
+        which, _ = tp.bottleneck(m, d, "dec")
+        loop.append(t)
+        print(f"  table2.{m.name}: tps={t:,.0f};"
+              f"tps_per_w={tp.tps_per_watt(m, d):.3f};"
+              f"n_dom={tp.n_domains(m, d)};bottleneck={which}")
+    grid = tp.tps_request_grid(tp.MODEL_SUITE, [d])[0]
+    dev_max = float(np.max(np.abs(grid / np.array(loop) - 1.0)))
+    if not dev_max <= TABLE2_RTOL:
+        raise AssertionError(f"table2: grid off the loop by {dev_max}")
+    print(f"table2: {len(loop)} models; tps_request_grid against the scalar "
+          f"loop max rel dev {dev_max:.3e} (limit {TABLE2_RTOL})")
 
 
 # ---------------------------------------------------------------- ssd_scan
@@ -2297,6 +2654,7 @@ def score_main_path(dev):
 
 
 def main():
+    start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -2344,6 +2702,7 @@ def main():
     stats = check_kernel(dev)
     mc_stats = check_kernel_mc_shapes(dev)
     pod_stats = check_kernel_pod_shapes(dev)
+    scenario_stats = check_kernel_scenario_shape(dev)
     timings["kernel check"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -2398,6 +2757,32 @@ def main():
     timings["mc pod pair"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
+    check_f5(dev)
+    timings["F5 check"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    payoff_golden(dev)
+    timings["payoff golden"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    study_launches = {"scenario_sweep": scenario_main_path(dev)}
+    timings["scenario_sweep"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    study_launches["fig18"], study_stats = fig18_main_path(dev)
+    timings["fig18"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    study_launches["design_frontier"], frontier_stats = \
+        frontier_main_path(dev)
+    study_stats.update(frontier_stats)
+    timings["design frontier"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    table2()
+    timings["table2"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
     serve_golden(dev)
     timings["serving golden"] = time.perf_counter() - t0
 
@@ -2430,7 +2815,8 @@ def main():
     gating_launches = moe_serve_main_path(dev)
     timings["moe serving main path"] = time.perf_counter() - t0
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
-                                        for k, v in timings.items()))
+                                        for k, v in timings.items())
+          + f"; script {time.perf_counter() - start:.1f}")
 
     print(json.dumps({"kernels": [
         dict(name="placement_score", route="cuda",
@@ -2438,7 +2824,9 @@ def main():
              replaces="src/repro/kernels/placement_score/kernel.py:73",
              launches=launches, library_ms=None, **stats,
              mc_launches=mc_launches, mc_shapes=mc_stats,
-             pod_launches=pod_launches, pod_shapes=pod_stats),
+             pod_launches=pod_launches, pod_shapes=pod_stats,
+             study_launches=study_launches, scenario_shape=scenario_stats,
+             study_shapes=study_stats),
         dict(name="ssd_scan", route="cuda",
              source="src/repro_torch/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan/kernel.py:52",

@@ -1,3 +1,15 @@
 """Core of the port: hierarchy, placement (multi-row pods included), the
 fleet lifecycle, the batched sweep, the single-hall Monte Carlo, the
-streaming quantiles, and the host-side cost and throughput models."""
+streaming quantiles, the host-side cost and throughput models, the
+scenario families, the pod payoff and frontier studies, and the
+calibration-artifact reader."""
+
+from . import (arrivals, calibration, cost, fleet, hierarchy, mc_sweep,
+               payoff, placement, prng, projections, quantiles, resources,
+               scenarios, singlehall, sweep, throughput)
+
+__all__ = [
+    "arrivals", "calibration", "cost", "fleet", "hierarchy", "mc_sweep",
+    "payoff", "placement", "prng", "projections", "quantiles", "resources",
+    "scenarios", "singlehall", "sweep", "throughput",
+]

@@ -62,10 +62,13 @@ def hist_masked_quantiles(x, mask, qs, n_bins: int = DEFAULT_BINS,
     Values are clipped into ``[lo, hi]`` before binning.  The continuous
     rank ``q/100 · (n - 1)`` interpolates linearly between its two
     neighbouring integer-rank estimates, so the absolute error is at most
-    one bin width ``(hi - lo) / n_bins``.  NaN where the mask selects
-    nothing."""
+    one bin width ``(hi - lo) / n_bins``.  A NaN value counts in the
+    lowest bucket, as in `repro`.  NaN where the mask selects nothing."""
     width = (hi - lo) / n_bins
     w = torch.clamp((x - lo) / (hi - lo), 0.0, 1.0)
+    # NaN goes to bucket 0, as `repro`'s int cast gives on XLA:CPU; the
+    # float-to-int cast of NaN itself differs between platforms
+    w = torch.nan_to_num(w, nan=0.0)
     b = torch.clamp((w * n_bins).to(torch.int32), max=n_bins - 1).long()
     counts = torch.zeros(x.shape[:-1] + (n_bins,), dtype=torch.float32,
                          device=x.device)

@@ -6,10 +6,13 @@ with per-token compute/memory costs (Eqs. 6–9), TP/EP communication
 (Eqs. 10–16) under the HBM-residency locality model (Eqs. 12–13), and
 request-level aggregation (Eq. 17).
 
-The counterpart of `repro.core.throughput` for the sweep's metric stage.
-It is plain host math on a handful of (model, deployment) pairs, so the
-`*_s` evaluators run in numpy float32 over `PairStatics` of any leaf
-shape, operation for operation as `repro`'s jitted jnp evaluators.
+The counterpart of `repro.core.throughput`.  It is plain host math on a
+handful of (model, deployment) pairs, so the `*_s` evaluators run in
+numpy float32 over `PairStatics` of any leaf shape, operation for
+operation as `repro`'s jnp evaluators.  A [C, M] grid of pairs is one
+evaluation (`tps_request_grid`, `tps_per_watt_grid`: the sweep engines'
+metric stage); the scalar API (`tps_prefill`, `tps_request`, …) is the
+single-pair wrapper over the same evaluators.
 """
 from __future__ import annotations
 
@@ -163,7 +166,28 @@ IDENT = CostScale()
 DTYPE = np.float32     # one dtype for every per-token cost
 
 
-# --- per-token communication (Eqs. 10–11) ---
+# --- per-token costs (Eqs. 6–11) ---
+
+def c_prefill(m: MoEModel, s_p):                  # Eq. 6 (FLOPs/token)
+    s_p = np.asarray(s_p, DTYPE)
+    return float(m.L) * (4.0 * m.K * m.w * m.FF + 4.0 * m.w ** 2
+                         + 2.0 * m.w * s_p)
+
+
+def c_decode(m: MoEModel, t):                     # Eq. 7
+    t = np.asarray(t, DTYPE)
+    return float(m.L) * (4.0 * m.K * m.w * m.FF + 4.0 * m.w ** 2
+                         + 2.0 * m.w * t)
+
+
+def m_prefill(m: MoEModel, s_p, batch=BATCH):     # Eq. 8 (bytes/token)
+    return m.w_total_bytes / (batch * s_p) + 2 * m.L * m.w * B_KV
+
+
+def m_decode(m: MoEModel, t, batch=BATCH):        # Eq. 9
+    t = np.asarray(t, DTYPE)
+    return m.w_active_bytes / batch + 2.0 * m.L * m.w * (t + 1.0) * B_KV
+
 
 def n_tp(m: MoEModel, t_d):                       # Eq. 10 (bytes/token)
     return m.L * 2 * (t_d - 1) / t_d * m.w * B_ACT
@@ -317,6 +341,17 @@ def tps_per_watt_s(st: PairStatics, s_out: int = 256,
     return tps_request_s(st, s_out, scale, batch, mode) / st.power_w
 
 
+def tps_request_grid(models: Sequence[MoEModel],
+                     deployments: Sequence[Deployment], s_out: int = 256,
+                     scale: CostScale = IDENT, batch=BATCH,
+                     mode=DEFAULT_MODE) -> np.ndarray:
+    """[C, M] request throughput for a deployments × models grid in one
+    evaluation (C deployments, M models).  Equals the scalar
+    `tps_request` per pair."""
+    st = grid_statics(models, deployments, batch=batch)
+    return tps_request_s(st, s_out, scale, batch, mode)
+
+
 def tps_per_watt_grid(models: Sequence[MoEModel],
                       deployments: Sequence[Deployment], s_out: int = 256,
                       scale: CostScale = IDENT, batch=BATCH,
@@ -328,3 +363,44 @@ def tps_per_watt_grid(models: Sequence[MoEModel],
 
 def t_kv_transfer(m: MoEModel, s_p, b_transfer):  # Eq. 18
     return 2 * m.L * m.w * s_p * B_KV / b_transfer
+
+
+def tps_prefill(m: MoEModel, d: Deployment, s_p=None,
+                scale: CostScale = IDENT, batch=BATCH, mode=DEFAULT_MODE):
+    return tps_prefill_s(pair_statics(m, d, s_p, batch), scale, mode)
+
+
+def tps_decode(m: MoEModel, d: Deployment, t,
+               scale: CostScale = IDENT, batch=BATCH, mode=DEFAULT_MODE):
+    return tps_decode_s(pair_statics(m, d, batch=batch), t, scale, mode)
+
+
+def tps_request(m: MoEModel, d: Deployment, s_out: int = 256,
+                scale: CostScale = IDENT, batch=BATCH, mode=DEFAULT_MODE):
+    """Request-level throughput for one pair (Eq. 17): the scalar
+    wrapper over `tps_request_s`."""
+    return tps_request_s(pair_statics(m, d, batch=batch), s_out, scale,
+                         batch, mode)
+
+
+def tps_per_watt(m: MoEModel, d: Deployment, s_out: int = 256,
+                 scale: CostScale = IDENT, mode=DEFAULT_MODE):
+    return float(tps_request(m, d, s_out, scale, mode=mode)) / d.power_w(m)
+
+
+def bottleneck(m: MoEModel, d: Deployment, phase: str = "dec", t: int = 1024,
+               scale: CostScale = IDENT):
+    """Which of the three terms binds (for analysis/plots)."""
+    if phase == "pre":
+        terms = {
+            "compute": float(scale.compute * c_prefill(m, m.S)) / d.f_flops(m),
+            "memory": float(scale.memory * m_prefill(m, m.S)) / d.b_hbm(m),
+            "comm": t_comm(m, d, scale),
+        }
+    else:
+        terms = {
+            "compute": float(scale.compute * c_decode(m, t)) / d.f_flops(m),
+            "memory": float(scale.memory * m_decode(m, t)) / d.b_hbm(m),
+            "comm": t_comm(m, d, scale),
+        }
+    return max(terms, key=terms.get), terms

@@ -13,7 +13,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import arrivals, hierarchy, prng  # noqa: E402
+from repro_torch.core import (arrivals, hierarchy, prng,  # noqa: E402
+                              quantiles)
 from repro_torch.core.mc_sweep import MCAxes, mc_sweep  # noqa: E402
 from repro_torch.core.sweep import SweepAxes, sweep  # noqa: E402
 from repro_torch.kernels.placement_score import kernel, ops  # noqa: E402
@@ -131,6 +132,24 @@ def test_pod_fleet_on_the_card_equals_the_cpu(cuda, legacy):
         np.testing.assert_array_equal(getattr(on_card, f), getattr(on_cpu, f),
                                       err_msg=f)
 
+
+
+@pytest.mark.parametrize("keep,want", [
+    ((True, True, True, True), (0.2998046875, 0.6099609136581421)),
+    ((True, False, True, True), (0.3994140625, 0.6400390863418579)),
+])
+def test_hist_quantiles_with_a_nan_on_the_card_equal_the_cpu(cuda, keep,
+                                                            want):
+    """A NaN value is binned into bucket 0 on the card as on the CPU
+    (the float-to-int cast never sees it), masked in or out."""
+    x = torch.tensor([0.2, float("nan"), 0.7, 0.4])
+    keep = torch.tensor(keep)
+    on_cpu = quantiles.hist_masked_quantiles(x, keep, (50.0, 90.0))
+    on_card = quantiles.hist_masked_quantiles(x.to(cuda), keep.to(cuda),
+                                              (50.0, 90.0))
+    for a, b, w in zip(on_card, on_cpu, want):
+        assert a.cpu().numpy().tobytes() == b.numpy().tobytes()
+        assert b.numpy().tobytes() == np.float32(w).tobytes()
 
 # ---- ssd_scan (Mamba2 SSD intra-chunk kernel) ----
 

@@ -40,7 +40,9 @@ def same_bytes(a, b):
 def test_port_imports_neither_jax_nor_repro():
     code = ("import sys; sys.path.insert(0, 'src'); "
             "import repro_torch.core.sweep, repro_torch.convert, "
-            "repro_torch.kernels.placement_score.ops; "
+            "repro_torch.kernels.placement_score.ops, "
+            "repro_torch.core.scenarios, repro_torch.core.payoff, "
+            "repro_torch.core.calibration; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -94,6 +94,47 @@ def test_hist_within_one_bin_of_np_percentile_and_jit():
                                        rtol=1e-6, atol=1e-7)
 
 
+F5_X = np.array([0.2, np.nan, 0.7, 0.4], np.float32)
+
+
+@pytest.mark.parametrize("keep,want", [
+    ((True, True, True, True), (0.2998046875, 0.6099609136581421)),
+    ((True, False, True, True), (0.3994140625, 0.6400390863418579)),
+])
+def test_hist_nan_value_lands_in_bucket_zero(keep, want):
+    """A NaN value, masked in or out, is binned into bucket 0 with its
+    mask's weight, as `repro`'s int cast bins it on XLA:CPU (the port
+    raised on it before: the CPU cast gives INT_MIN)."""
+    keep = np.array(keep)
+    got = t_qt.hist_masked_quantiles(torch.from_numpy(F5_X),
+                                     torch.from_numpy(keep), QS)
+    ref = r_qt.hist_masked_quantiles(jnp.asarray(F5_X), jnp.asarray(keep),
+                                     QS)
+    for q in range(len(QS)):
+        assert same_bits(got[q], np.float32(want[q])), QS[q]
+        assert same_bits(got[q], ref[q]), QS[q]
+
+
+def test_hist_nan_rows_batched_bitwise_to_repro():
+    """A [3, H] batch with NaN at several places of each row, masked in
+    and out, against `repro`'s eager call row by row."""
+    rng = np.random.RandomState(5)
+    x = rng.uniform(-0.1, 1.1, (3, 40)).astype(np.float32)
+    keep = rng.rand(3, 40) < 0.7
+    x[0, [0, 7, 8]] = np.nan
+    x[1, 3] = np.nan
+    keep[1, 3] = False
+    x[2, ::5] = np.nan
+    x[2, 1] = np.inf
+    got = t_qt.hist_masked_quantiles(torch.from_numpy(x),
+                                     torch.from_numpy(keep), QS)
+    for n in range(len(x)):
+        want = r_qt.hist_masked_quantiles(jnp.asarray(x[n]),
+                                          jnp.asarray(keep[n]), QS)
+        for q in range(len(QS)):
+            assert same_bits(got[q][n], want[q]), (n, QS[q])
+
+
 def family_stream(family, n, seed):
     rng = np.random.RandomState(seed)
     return {"uniform": lambda: rng.uniform(0.0, 1.0, n),
