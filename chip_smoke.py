@@ -40,9 +40,22 @@ read just after:
   then run once more on the CPU, every point field equal to the card's,
   and the kernel is checked at each of their grids' rows and pod views;
   Table 2 through the per-pair throughput API (host math);
+* resilient execution: `resilient_sweep`'s fault cases (poison, NaN
+  output, transient failures, injected OOM, a quarantine across a kill,
+  chunks of 1) on tests/test_resilience.py's grid, each report equal to
+  the CPU's and the surviving rows bitwise the card's one-shot `sweep`;
+  `resilience_resume`'s 1024 configurations in chunks of 256, crashed
+  after chunk 2 and resumed, bitwise the one-shot `sweep`;
+  `resilience_overhead`'s 512 configurations in chunks of 128 with
+  checkpointing off and on, bitwise; a real CUDA OOM under a capped
+  allocator, halved without quarantine; Fig. 6 through
+  `resilient_mc_sweep` in chunks of 16 configurations, crashed and
+  resumed, bitwise `mc_sweep`; `placement_score` runs once per placement
+  step of every chunk, retry and bisection range;
 * Mamba2-2.7B serving: `smoke_config()` served on the CPU and on the card
-  (float32), then the full-width model (64 layers, d_model 2560, bf16
-  weights drawn from a generator seeded with 0) behind `ServeEngine`
+  (float32), then the full-width model (d_model 2560, 32 of its 64
+  layers, bf16 weights drawn from a generator seeded with 0) behind
+  `ServeEngine`
   with 4 slots, 8 requests of 1024 prompt tokens and 32 new tokens each;
   it launches `ssd_scan` once per layer per prefill, on the tensor cores
   (bf16); its logits and tokens are held to the interpret=True run's
@@ -53,13 +66,14 @@ read just after:
   bf16 weights drawn from a generator seeded with 0) on 4 × 4096 tokens
   under `torch.inference_mode()`; it launches `flash_attention` once per
   layer per call;
-* Qwen3-1.7B serving: the smoke golden, then the full-width model behind
-  `ServeEngine` with Mamba2's traffic; its prefill and decode use the
+* Qwen3-1.7B serving: the smoke golden, then the full-width model (14 of
+  its 28 layers) behind `ServeEngine` with Mamba2's traffic; its
+  prefill and decode use the
   plain attention, as the reference's do, and launch no kernel;
 * granite-moe-1b-a400m serving: the smoke golden, with its CPU-vs-card
   gap taken apart by stage and held below what one wrong route moves,
-  then the full-width model (24 layers, d_model 1024, 32 experts,
-  top-8, bf16 weights drawn from a generator seeded with 0) behind
+  then the full-width model (d_model 1024, 32 experts, top-8, 12 of
+  its 24 layers, bf16 weights drawn from a generator seeded with 0) behind
   `ServeEngine` with the same traffic; its MoE router launches
   `gating_topk` once per layer per prefill and per decode step, and a
   run with the plain router (use_flash_kernel=False) must give the same
@@ -87,6 +101,11 @@ GOLDEN_SCALE = 0.005
 # serving main path: ServeEngine over mamba2-2.7b at full width
 SERVE = dict(batch_slots=4, prompt_len=1024, max_seq=1088)
 SERVE_REQUESTS, SERVE_NEW = 8, 32
+# The serving runs keep the published widths and half the published depth
+# (64, 28 and 24 layers), so that the whole script, resilience phases
+# included, stays inside its target of half the 1200 s limit.
+SERVE_LAYERS = {"mamba2-2.7b": 32, "qwen3-1.7b": 14,
+                "granite-moe-1b-a400m": 12}
 # the smoke golden: tests/test_launchers.py's serving traffic
 GOLDEN_SERVE = dict(batch_slots=2, prompt_len=8, max_seq=48)
 GOLDEN_REQUESTS, GOLDEN_NEW = 5, 8
@@ -1341,6 +1360,444 @@ def table2():
           f"loop max rel dev {dev_max:.3e} (limit {TABLE2_RTOL})")
 
 
+# ------------------------------------------------------ resilient execution
+
+RESILIENCE_SCALE = 0.004  # tests/test_resilience.py's grid
+# benchmarks/run.py's full-size legs (configurations, chunk size); a
+# rehearsal on the CPU sets them lower
+RESUME_GRID = (1024, 256)       # resilience_resume
+OVERHEAD_GRID = (512, 128)      # resilience_overhead
+OOM_CONFIGS = 512               # the real OOM's one chunk
+FAULT_BACKOFF = dict(base_s=0.0, max_retries=2)
+RESULT_FIELDS = SWEEP_FIELDS + ("initial_dpm", "total_capex",
+                                "provisioned_mw", "tps_per_provisioned_w",
+                                "dollars_per_tps")
+
+
+def resilience_grid(n_cfg):
+    """benchmarks/run.py's `_resilience_grid` (:831-847), the
+    `resilience_*` legs' geometry: a pool of 8 traces (MED/HIGH x seeds
+    41-44, demand_scale 0.01, end_year 2028) dealt round-robin over
+    `n_cfg` configurations, designs alternating 4N/3 and 3+1.  Returns
+    (axes, traces)."""
+    from repro_torch.core import hierarchy
+    from repro_torch.core.arrivals import EnvelopeSpec, generate_fleet_trace
+    from repro_torch.core.sweep import SweepAxes
+    pool = [(sc, sd) for sc in ("med", "high") for sd in (41, 42, 43, 44)]
+    envs_pool = [EnvelopeSpec(demand_scale=0.01, gpu_scenario=sc,
+                              end_year=2028) for sc, _ in pool]
+    traces_pool = [generate_fleet_trace(e, sd)
+                   for e, (_, sd) in zip(envs_pool, pool)]
+    idx = [i % len(pool) for i in range(n_cfg)]
+    axes = SweepAxes.zip(
+        designs=[hierarchy.get_design(("4N/3", "3+1")[i % 2])
+                 for i in range(n_cfg)],
+        envs=[envs_pool[j] for j in idx],
+        seeds=[pool[j][1] for j in idx])
+    return axes, [traces_pool[j] for j in idx]
+
+
+def fault_axes():
+    """tests/test_resilience.py's 8 configurations (4N/3 and 3+1 x MED
+    and HIGH at scale 0.004, end_year 2028, x seeds 0 and 1)."""
+    from repro_torch.core import hierarchy
+    from repro_torch.core.arrivals import EnvelopeSpec
+    from repro_torch.core.sweep import SweepAxes
+    envs = [EnvelopeSpec(demand_scale=RESILIENCE_SCALE, gpu_scenario=sc,
+                         end_year=2028) for sc in ("med", "high")]
+    return SweepAxes.product(
+        designs=[hierarchy.get_design("4N/3"), hierarchy.get_design("3+1")],
+        envs=envs, seeds=(0, 1))
+
+
+def same_fields(a, b, fields, what, rows=None):
+    """Every field bitwise equal (NaN patterns included), shapes and
+    dtypes too; `rows` restricts the comparison to those configurations."""
+    import numpy as np
+    for f in fields:
+        x, y = np.asarray(getattr(a, f)), np.asarray(getattr(b, f))
+        if rows is not None:
+            x, y = x[rows], y[rows]
+        if x.shape != y.shape or x.dtype != y.dtype \
+                or x.tobytes() != y.tobytes():
+            raise AssertionError(f"{what}: `{f}` differs")
+
+
+def report_of(report):
+    """A `RunReport` as comparable data (the error text aside)."""
+    return dict(chunks=(report.n_chunks, report.chunks_computed,
+                        report.chunks_resumed),
+                retries=report.retries, oom_halvings=report.oom_halvings,
+                quarantined=[(q.index, q.reason, q.attempts)
+                             for q in report.quarantined])
+
+
+class CommitTimer:
+    """Seconds and counts of the executor's chunk commits
+    (`Checkpointer.save`) and resume reads (`Checkpointer.load`) while
+    the block runs."""
+
+    def __enter__(self):
+        from repro_torch.checkpoint.checkpointer import Checkpointer
+        self.saved = (Checkpointer.save, Checkpointer.load)
+        self.commit_s, self.commits, self.load_s, self.loads = 0.0, 0, 0.0, 0
+
+        def timed(fn, kind):
+            def run(*args, **kw):
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                setattr(self, kind + "_s", getattr(self, kind + "_s")
+                        + time.perf_counter() - t0)
+                setattr(self, kind + "s", getattr(self, kind + "s") + 1)
+                return out
+            return run
+        Checkpointer.save = timed(self.saved[0], "commit")
+        Checkpointer.load = timed(self.saved[1], "load")
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.checkpoint.checkpointer import Checkpointer
+        Checkpointer.save, Checkpointer.load = self.saved
+        return False
+
+
+def scratch_dir():
+    """A fresh checkpoint directory under the checkout's build/."""
+    import tempfile
+    root = os.path.join(ROOT, "build", "chip_smoke_checkpoints")
+    os.makedirs(root, exist_ok=True)
+    return tempfile.mkdtemp(dir=root)
+
+
+def check_kernel_resilience_shape(dev):
+    """The kernel check at the resume grid's chunk: the first 256
+    configurations of the 1024-configuration batch, their padded rows."""
+    from repro_torch.core.placement import Topology
+    from repro_torch.core.sweep import _prepare
+    n_cfg, chunk = RESUME_GRID
+    axes, traces = resilience_grid(n_cfg)
+    jt = _prepare(axes, 0, traces, dev).jt
+    jt = Topology(*(x[:chunk] for x in jt))
+    N, R = jt.row_cap.shape[:2]
+    return dict(rows=f"{N}x{R}", **check_kernel(
+        dev, jt, "the resilience grid's chunk"))
+
+
+def resume_main_path(dev):
+    """`resilience_resume` (benchmarks/run.py:899-944): the card's
+    one-shot `sweep` of 1024 configurations, then `resilient_sweep` in
+    chunks of 256 with a crash after chunk 2 commits, then the resume:
+    3 chunks resumed, 1 computed, every field bitwise the one-shot's."""
+    import shutil
+    import torch
+    from repro_torch.core.resilience import (FaultPlan, InjectedCrash,
+                                             resilient_sweep)
+    from repro_torch.core.sweep import sweep
+    from repro_torch.kernels.placement_score.kernel import placement_score
+    n_cfg, chunk = RESUME_GRID
+    axes, traces = resilience_grid(n_cfg)
+    kw = dict(traces=traces, exact_quantiles=False, device=dev)
+    one_shot, wall_one = timed_sweep(axes, dev, traces=traces,
+                                     exact_quantiles=False)
+    ck = scratch_dir()
+    try:
+        with CommitTimer() as timer:
+            placement_score.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                resilient_sweep(axes, chunk_size=chunk, checkpoint_dir=ck,
+                                fault_plan=FaultPlan(crash_after=2), **kw)
+            except InjectedCrash:
+                pass
+            else:
+                raise AssertionError("resume: the injected crash did not "
+                                     "fire")
+            torch.cuda.synchronize()
+            wall_crash = time.perf_counter() - t0
+            crash_launches = placement_score.launches
+            commits = (timer.commits, timer.commit_s)
+            placement_score.launches = 0
+            t0 = time.perf_counter()
+            res = resilient_sweep(axes, chunk_size=chunk, checkpoint_dir=ck,
+                                  **kw)
+            torch.cuda.synchronize()
+            wall_resume = time.perf_counter() - t0
+            launches = placement_score.launches
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    r = res.report
+    if (r.chunks_resumed, r.chunks_computed) != (3, 1) or r.quarantined:
+        raise AssertionError(f"resume: {r}")
+    if launches != res.event_steps:
+        raise AssertionError(f"resume: {launches} placement_score launches "
+                             f"for {res.event_steps} placement steps")
+    same_fields(res, one_shot, RESULT_FIELDS, "resume vs one-shot sweep")
+    wall, busy, n_device, top = profile_run(lambda: sweep(
+        axes, traces=traces, exact_quantiles=False, device=dev))
+    for name, (calls, secs) in top[:5]:
+        print(f"  device {secs:8.4f} s {calls:8d} calls  {name[:90]}")
+    print(f"resume grid's one-shot sweep profiled (card activity): "
+          f"{wall:.3f} s wall, device busy {busy:.3f} s, idle share "
+          f"{1 - busy / wall:.3f}, {n_device} kernels and copies "
+          f"({n_device / one_shot.event_steps:.1f} per step)")
+    print(f"resume: {len(axes)} configurations (resilience_resume's grid), "
+          f"chunks of {chunk} on {res.device}; one-shot sweep "
+          f"{wall_one:.3f} s, {one_shot.event_steps} steps "
+          f"({wall_one / one_shot.event_steps * 1e3:.3f} ms per step); "
+          f"crashed after chunk 2 in {wall_crash:.3f} s, {crash_launches} "
+          f"launches ({wall_crash / crash_launches * 1e3:.3f} ms per step), "
+          f"{commits[0]} commits {commits[1]:.3f} s "
+          f"({commits[1] / commits[0]:.4f} s per chunk); resume "
+          f"{wall_resume:.3f} s: 3 chunks resumed (reads "
+          f"{timer.load_s:.4f} s), 1 computed, {launches} launches = its "
+          f"placement steps ({wall_resume / launches * 1e3:.3f} ms per "
+          f"step); every field bitwise the one-shot's")
+    return dict(resume=launches, crashed_run=crash_launches,
+                one_shot=one_shot.event_steps)
+
+
+def overhead_legs(dev):
+    """`resilience_overhead`'s legs (benchmarks/run.py:851-895): 512
+    configurations in chunks of 128 through `resilient_sweep`, durability
+    off, on, on, off; the results bitwise equal; the on/off ratio of the
+    walls printed, not gated (the host moves walls between calls)."""
+    import shutil
+    import torch
+    from repro_torch.core.resilience import resilient_sweep
+    from repro_torch.kernels.placement_score.kernel import placement_score
+    n_cfg, chunk = OVERHEAD_GRID
+    axes, traces = resilience_grid(n_cfg)
+    kw = dict(chunk_size=chunk, traces=traces, exact_quantiles=False,
+              device=dev)
+    walls, runs, commit = {"off": [], "on": []}, [], []
+    for leg in ("off", "on", "on", "off"):
+        ck = scratch_dir() if leg == "on" else None
+        try:
+            with CommitTimer() as timer:
+                placement_score.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = resilient_sweep(axes, checkpoint_dir=ck, **kw)
+                torch.cuda.synchronize()
+                walls[leg].append(time.perf_counter() - t0)
+        finally:
+            if ck:
+                shutil.rmtree(ck, ignore_errors=True)
+        if placement_score.launches != res.event_steps:
+            raise AssertionError("overhead: launches differ from steps")
+        if leg == "on":
+            if timer.commits != 4 or res.report.chunks_computed != 4:
+                raise AssertionError(f"overhead: {timer.commits} commits")
+            commit.append(timer.commit_s)
+        runs.append(res)
+    for res in runs[1:]:
+        same_fields(res, runs[0], RESULT_FIELDS, "overhead on vs off")
+    off, on = sum(walls["off"]), sum(walls["on"])
+    steps = runs[0].event_steps
+    print(f"overhead: {len(axes)} configurations in 4 chunks of {chunk}, "
+          f"{steps} placement steps = launches per run; walls off "
+          f"{walls['off'][0]:.3f}, {walls['off'][1]:.3f} s, on "
+          f"{walls['on'][0]:.3f}, {walls['on'][1]:.3f} s (commits "
+          f"{commit[0]:.3f}, {commit[1]:.3f} s for 4 chunks); on/off "
+          f"{on / off:.4f}; {off / 2 / steps * 1e3:.3f} ms per step off; "
+          f"the four results bitwise equal")
+    return steps
+
+
+FAULT_CASES = {
+    # name: (chunk size, FaultPlan keywords, crash then resume)
+    "poison": (3, dict(poison=(5,)), False),
+    "nan": (3, dict(nan=(2,)), False),
+    "transient": (3, dict(fail={1: 2}), False),
+    "oom": (3, dict(oom={0: 1}), False),
+    "poison_across_kill": (3, dict(poison=(5,), crash_after=1), True),
+    "width_1": (1, {}, False),
+}
+
+
+def fault_run(axes, case, device):
+    """One FAULT_CASES case through `resilient_sweep` on `device` (after
+    a crash, the resumed run)."""
+    import shutil
+    from repro_torch.core.resilience import (FaultPlan, InjectedCrash,
+                                             resilient_sweep)
+    from repro_torch.runtime.fault import Backoff
+    chunk, plan, crash = FAULT_CASES[case]
+    kw = dict(chunk_size=chunk, backoff=Backoff(**FAULT_BACKOFF),
+              device=device)
+    if not crash:
+        return resilient_sweep(axes, fault_plan=FaultPlan(**plan), **kw)
+    ck = scratch_dir()
+    try:
+        try:
+            resilient_sweep(axes, checkpoint_dir=ck,
+                            fault_plan=FaultPlan(**plan), **kw)
+        except InjectedCrash:
+            pass
+        else:
+            raise AssertionError(f"{case}: the injected crash did not fire")
+        return resilient_sweep(axes, checkpoint_dir=ck, **kw)
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+
+
+def fault_cases(dev):
+    """The fault cases on tests/test_resilience.py's grid, chunks of 3
+    (1 for the width-1 case), on the CPU and on the card: the reports
+    equal, the surviving rows bitwise the card's one-shot `sweep`, the
+    quarantined rows sentinels."""
+    import numpy as np
+    import torch
+    from repro_torch.core.sweep import sweep
+    from repro_torch.kernels.placement_score.kernel import placement_score
+    axes = fault_axes()
+    one_shot = sweep(axes, device=dev)
+    out = []
+    for case in FAULT_CASES:
+        t0 = time.perf_counter()
+        on_cpu = fault_run(axes, case, "cpu")
+        t1 = time.perf_counter()
+        placement_score.launches = 0
+        on_card = fault_run(axes, case, dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        want, got = report_of(on_cpu.report), report_of(on_card.report)
+        if got != want:
+            raise AssertionError(f"fault {case}: card report {got} != CPU "
+                                 f"report {want}")
+        q = on_card.report.quarantined_indices()
+        keep = [i for i in range(len(axes)) if i not in q]
+        same_fields(on_card, one_shot, RESULT_FIELDS,
+                    f"fault {case} (surviving rows vs one-shot)", rows=keep)
+        same_fields(on_card, on_cpu, RESULT_FIELDS,
+                    f"fault {case} (card vs CPU)")
+        for i in q:
+            if not (np.isnan(on_card.final_deployed_mw[i])
+                    and on_card.n_halls_built[i] == -1
+                    and (on_card.reg_rows[i] == -1).all()):
+                raise AssertionError(f"fault {case}: row {i} is not a "
+                                     "sentinel")
+        if placement_score.launches < on_card.event_steps:
+            raise AssertionError(f"fault {case}: {placement_score.launches}"
+                                 f" launches for {on_card.event_steps} "
+                                 "steps")
+        out.append(f"{case} {got['quarantined']} retries {got['retries']} "
+                   f"halvings {got['oom_halvings']} chunks "
+                   f"{got['chunks']} ({placement_score.launches} launches; "
+                   f"CPU {t1 - t0:.2f} s, card {t2 - t1:.2f} s)")
+    print("faults: " + "; ".join(out) + "; every report equal to the CPU's, "
+          "surviving rows bitwise the card's one-shot sweep")
+
+
+def memory_peak(run):
+    """(result, peak reserved bytes) of `run()` from an emptied cache."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = run()
+    torch.cuda.synchronize()
+    return res, torch.cuda.max_memory_reserved()
+
+
+def real_oom(dev):
+    """A real CUDA OOM: the resilience grid's 512 configurations
+    (`OOM_CONFIGS`) as one chunk, with the caching allocator capped (`set_per_process_memory_
+    fraction`) half-way between the measured peaks of the full chunk and
+    of its halves, so the full dispatch raises `torch.cuda.OutOfMemory
+    Error` and its halves fit; the run must halve, quarantine nothing and
+    give the uncapped run's bits."""
+    import torch
+    from repro_torch.core.resilience import resilient_sweep
+    axes, traces = resilience_grid(OOM_CONFIGS)
+    kw = dict(traces=traces, device=dev)
+    full, peak_full = memory_peak(
+        lambda: resilient_sweep(axes, chunk_size=OOM_CONFIGS, **kw))
+    halves, peak_half = memory_peak(
+        lambda: resilient_sweep(axes, chunk_size=OOM_CONFIGS // 2, **kw))
+    same_fields(halves, full, RESULT_FIELDS, "real OOM: halves vs full")
+    gap = peak_full - peak_half
+    if gap < 4 << 20:
+        raise AssertionError(f"real OOM: the full chunk's peak "
+                             f"{peak_full} B is only {gap} B above its "
+                             "halves'; no cap separates them")
+    cap = peak_half + gap // 2
+    total = torch.cuda.get_device_properties(dev).total_memory
+    torch.cuda.set_per_process_memory_fraction(cap / total, dev)
+    try:
+        capped, peak_capped = memory_peak(
+            lambda: resilient_sweep(axes, chunk_size=OOM_CONFIGS, **kw))
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+    r = capped.report
+    if r.oom_halvings < 1 or r.quarantined:
+        raise AssertionError(f"real OOM: {r}")
+    same_fields(capped, full, RESULT_FIELDS, "real OOM: capped vs uncapped")
+    print(f"real OOM: {OOM_CONFIGS} configurations as one chunk; peak "
+          f"reserved "
+          f"{peak_full / 2**20:.1f} MiB whole, {peak_half / 2**20:.1f} MiB "
+          f"in halves; cap {cap / 2**20:.1f} MiB "
+          f"({cap / total:.6f} of {total / 2**30:.1f} GiB); capped run "
+          f"{r.oom_halvings} halving(s), no quarantine, peak "
+          f"{peak_capped / 2**20:.1f} MiB, bitwise the uncapped run")
+
+
+def resilient_mc_path(dev):
+    """Fig. 6's grid (benchmarks/run.py:146-162) through
+    `resilient_mc_sweep` in chunks of 16 configurations (64, 64 and 40
+    trials), crashed after chunk 0 commits, then resumed: every output
+    and registry bitwise the card's `mc_sweep`."""
+    import shutil
+    import torch
+    from repro_torch.core.mc_sweep import mc_sweep
+    from repro_torch.core.resilience import (FaultPlan, InjectedCrash,
+                                             resilient_mc_sweep)
+    from repro_torch.kernels.placement_score.kernel import placement_score
+    axes, kw = mc_figures()["fig6"]
+    kw = dict(kw, device=dev)
+    one_shot = mc_sweep(axes, **kw)
+    ck = scratch_dir()
+    try:
+        placement_score.launches = 0
+        t0 = time.perf_counter()
+        try:
+            resilient_mc_sweep(axes, chunk_size=16, checkpoint_dir=ck,
+                               fault_plan=FaultPlan(crash_after=0), **kw)
+        except InjectedCrash:
+            pass
+        else:
+            raise AssertionError("resilient MC: the crash did not fire")
+        crash_launches = placement_score.launches
+        placement_score.launches = 0
+        res = resilient_mc_sweep(axes, chunk_size=16, checkpoint_dir=ck,
+                                 **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = placement_score.launches
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    r = res.report
+    if (r.n_chunks, r.chunks_resumed, r.chunks_computed) != (3, 1, 2) \
+            or r.quarantined:
+        raise AssertionError(f"resilient MC: {r}")
+    if launches != res.event_steps:
+        raise AssertionError(f"resilient MC: {launches} launches for "
+                             f"{res.event_steps} steps")
+    same_fields(res, one_shot, MC_FIELDS + ("ha_capacity_kw",),
+                "resilient MC vs mc_sweep")
+    trials = [min(16, len(axes) - i) * kw["n_trials"]
+              for i in range(0, len(axes), 16)]
+    print(f"resilient MC: Fig. 6's {len(axes)} configurations x "
+          f"{kw['n_trials']} trials in chunks of 16 ({trials} trials); "
+          f"crash after chunk 0 ({crash_launches} launches), resume "
+          f"{r.chunks_resumed} resumed, {r.chunks_computed} computed "
+          f"({launches} launches = steps); crash + resume {wall:.3f} s; "
+          f"every output and registry bitwise the card's mc_sweep")
+    return launches
+
+
 # ---------------------------------------------------------------- ssd_scan
 
 def ssd_inputs(dev, S, seed, nh=80, hd=64, st=128):
@@ -2129,7 +2586,8 @@ def serve_main_path(dev):
     from repro_torch.kernels.ssd_scan.kernel import ssd_intra_chunk
     from repro_torch.kernels.ssd_scan.ref import split_intra_chunk
     from repro_torch.models.api import build_model
-    cfg = dataclasses.replace(CONFIG, use_flash_kernel=True)
+    cfg = dataclasses.replace(CONFIG, use_flash_kernel=True,
+                              n_layers=SERVE_LAYERS[CONFIG.name])
     model = build_model(cfg, dev)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(0),
@@ -2282,7 +2740,8 @@ def dense_serve_main_path(dev):
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_bhsd
     from repro_torch.models.api import build_model
-    cfg = dataclasses.replace(CONFIG, use_flash_kernel=True)
+    cfg = dataclasses.replace(CONFIG, use_flash_kernel=True,
+                              n_layers=SERVE_LAYERS[CONFIG.name])
     model = build_model(cfg, dev)
     params = model.init(torch.Generator(device=dev).manual_seed(0),
                         torch.bfloat16)
@@ -2370,7 +2829,8 @@ def moe_serve_main_path(dev):
     from repro_torch.configs.granite_moe_1b_a400m import CONFIG
     from repro_torch.kernels.moe_gating.kernel import gating_topk
     from repro_torch.models.api import build_model
-    cfg = dataclasses.replace(CONFIG, use_flash_kernel=True)
+    cfg = dataclasses.replace(CONFIG, use_flash_kernel=True,
+                              n_layers=SERVE_LAYERS[CONFIG.name])
     model = build_model(cfg, dev)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(0),
@@ -2703,6 +3163,7 @@ def main():
     mc_stats = check_kernel_mc_shapes(dev)
     pod_stats = check_kernel_pod_shapes(dev)
     scenario_stats = check_kernel_scenario_shape(dev)
+    resilience_stats = check_kernel_resilience_shape(dev)
     timings["kernel check"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -2783,6 +3244,26 @@ def main():
     timings["table2"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
+    fault_cases(dev)
+    timings["fault cases"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    resilience_launches = resume_main_path(dev)
+    timings["resume"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    resilience_launches["overhead_run"] = overhead_legs(dev)
+    timings["overhead legs"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    real_oom(dev)
+    timings["real OOM"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    resilience_launches["resilient_mc_fig6"] = resilient_mc_path(dev)
+    timings["resilient MC"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
     serve_golden(dev)
     timings["serving golden"] = time.perf_counter() - t0
 
@@ -2826,7 +3307,9 @@ def main():
              mc_launches=mc_launches, mc_shapes=mc_stats,
              pod_launches=pod_launches, pod_shapes=pod_stats,
              study_launches=study_launches, scenario_shape=scenario_stats,
-             study_shapes=study_stats),
+             study_shapes=study_stats,
+             resilience_launches=resilience_launches,
+             resilience_chunk_shape=resilience_stats),
         dict(name="ssd_scan", route="cuda",
              source="src/repro_torch/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan/kernel.py:52",

@@ -19,18 +19,18 @@ Each placement step launches the placement-score kernel once, over all
 N·R rows.  Pod traces (``pod_racks > 1``) run the split-pods path (a pod
 window over the HD-compacted rows, then a cluster window) or, with
 ``legacy_pod_cond=True``, the per-event cond; both place alike.
-`sharded_mc_sweep`, the grid split over several cards, waits for ROADMAP
-queue 1, item 9.
+`resilience.resilient_mc_sweep` runs the same batch in checkpointed,
+fault-isolated chunks of configurations.  `sharded_mc_sweep`, the grid
+split over several cards, waits for ROADMAP queue 1, item 9.
 """
 from __future__ import annotations
 
 import functools
 import itertools
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from . import arrivals, cost, placement as pl, prng, projections as proj
 from . import throughput as tp
@@ -38,7 +38,7 @@ from .hierarchy import (DesignSpec, HallTopology, SweepValidationError,
                         build_topology)
 from .placement import DEFAULT_POLICY, POLICY_NAMES, Topology
 from .singlehall import TraceArrays, run_trial
-from .sweep import _broadcast
+from .sweep import _broadcast, device_name
 from ..device import resolve_device
 
 
@@ -266,6 +266,51 @@ def _mc_prepare(axes: MCAxes, n_trials: int, n_events: int, year: int,
             TraceArrays.from_batches(tbs, device), keys, policy), mode
 
 
+class MCOutputs(NamedTuple):
+    """Host outputs of configurations ``[lo, hi)``, each ``[hi − lo, T,
+    …]``: `mc_sweep`'s six result arrays, then the trials' registries,
+    then the placement steps run (kernel launches) and the pod racks
+    among them."""
+    lineup_stranding: np.ndarray   # [n, T, X_pad] f32
+    hall_stranding: np.ndarray     # [n, T] f32
+    deployed_kw: np.ndarray        # [n, T] f32
+    saturated: np.ndarray          # [n, T] bool
+    placed_a: np.ndarray           # [n, T, E] bool
+    placed_b: np.ndarray           # [n, T, E_b] bool
+    rows_a: np.ndarray             # [n, T, E, MAX_POD_RACKS] i64
+    counts_a: np.ndarray           # [n, T, E, MAX_POD_RACKS] f32
+    rows_b: np.ndarray             # [n, T, E_b, MAX_POD_RACKS] i64
+    counts_b: np.ndarray           # [n, T, E_b, MAX_POD_RACKS] f32
+    event_steps: int
+    pod_steps: int
+
+
+def _mc_evaluate(args, mode: dict, n_trials: int, lo: int, hi: int, *,
+                 harvest: bool, interpret: bool = False) -> MCOutputs:
+    """`singlehall.run_trial` over configurations ``[lo, hi)`` of a
+    `_mc_prepare` batch: trials ``[lo·T, hi·T)`` of the topology, keys
+    and policy (axis 0) and of the event-major traces (axis 1), under the
+    whole batch's placement `mode`.  `mc_sweep` runs ``[0, B)``; the
+    resilient executor (`resilience.resilient_mc_sweep`) any chunk of
+    it, with the same bits in every row."""
+    jt, ta, tb, keys, policy = args
+    a, b = lo * n_trials, hi * n_trials
+    jt = Topology(*(x[a:b] for x in jt))
+    ta, tb = (TraceArrays(*(x[:, a:b].contiguous() for x in t))
+              for t in (ta, tb))
+    state, res_a, res_b = run_trial(jt, pl.init_state(jt), ta, tb,
+                                    policy[a:b], keys[a:b], harvest=harvest,
+                                    interpret=interpret, **mode)
+    out = (pl.lineup_stranding(jt, state), pl.hall_stranding(jt, state)[:, 0],
+           pl.deployed_kw(state), res_b.saturated, res_a.placed,
+           res_b.placed, res_a.rows, res_a.counts, res_b.rows, res_b.counts)
+    return MCOutputs(
+        *(x.cpu().numpy().reshape((hi - lo, n_trials) + x.shape[1:])
+          for x in out),
+        event_steps=res_a.steps + res_b.steps,
+        pod_steps=res_a.pod_steps + res_b.pod_steps)
+
+
 def _mc_finalize(out, axes: MCAxes, models=None, year: int = 2028,
                  scenario: str = proj.MED, gpu_share: float = 1.0,
                  pod_racks: int = 1) -> MCResult:
@@ -349,27 +394,17 @@ def mc_sweep(axes: MCAxes, n_trials: int = 32, n_events: int = 600,
             launching the CUDA kernel.
     """
     dev = resolve_device(device)
-    B, T = len(axes), int(n_trials)
-    (jt, ta, tb, keys, policy), mode = _mc_prepare(
+    args, mode = _mc_prepare(
         axes, n_trials, n_events, year, scenario, gpu_power_share,
         pod_racks, quantum_racks, la_fraction, single_sku_gpu,
         refill_events, dev, legacy_pod_cond)
-    state, res_a, res_b = run_trial(jt, pl.init_state(jt), ta, tb, policy,
-                                    keys, harvest=harvest,
-                                    interpret=interpret, **mode)
-    out = (pl.lineup_stranding(jt, state), pl.hall_stranding(jt, state)[:, 0],
-           pl.deployed_kw(state), res_b.saturated, res_a.placed,
-           res_b.placed)
-    out = [x.cpu().numpy().reshape((B, T) + x.shape[1:]) for x in out]
-    res = _mc_finalize(out, axes, models=models, year=year,
+    out = _mc_evaluate(args, mode, int(n_trials), 0, len(axes),
+                       harvest=harvest, interpret=interpret)
+    res = _mc_finalize(out[:6], axes, models=models, year=year,
                        scenario=scenario,
                        gpu_share=1.0 if single_sku_gpu else gpu_power_share,
                        pod_racks=pod_racks)
-    res.rows_a, res.counts_a, res.rows_b, res.counts_b = (
-        x.cpu().numpy().reshape((B, T) + x.shape[1:])
-        for x in (res_a.rows, res_a.counts, res_b.rows, res_b.counts))
-    res.event_steps = res_a.steps + res_b.steps
-    res.pod_steps = res_a.pod_steps + res_b.pod_steps
-    res.device = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                  else "cpu")
+    res.rows_a, res.counts_a, res.rows_b, res.counts_b = out[6:10]
+    res.event_steps, res.pod_steps = out.event_steps, out.pod_steps
+    res.device = device_name(dev)
     return res

@@ -12,8 +12,9 @@ windows, or the per-event cond with ``legacy_pod_cond=True``):
     res = sweep(axes)                      # on the card; device="cpu" too
     res.p90_stranding[i, -1], res.effective_dpm[i], res.result(i) ...
 
-`sharded_sweep` (configurations split over several cards) waits for
-ROADMAP queue 1, item 9.
+`resilience.resilient_sweep` runs the same batch in checkpointed,
+fault-isolated chunks.  `sharded_sweep` (configurations split over
+several cards) waits for ROADMAP queue 1, item 9.
 """
 from __future__ import annotations
 
@@ -197,8 +198,9 @@ def _prepare(axes: SweepAxes, n_halls_max: int,
     the rack-scan length `pod_scan_len` (the largest pod) and `hd_scan`
     (the largest HD-row count, the compacted pod view).  Returns a
     namespace of (jt, ft, windows (idx, valid, idx_pod, valid_pod),
-    h_caps, n_real, months, topos, X_pad, with_pods, pod_scan_len,
-    hd_scan)."""
+    policy, h_caps, n_real, seeds, months, topos, X_pad, with_pods,
+    legacy_pod_cond, pod_scan_len, hd_scan), every per-configuration
+    field with the configuration on axis 0 (see `_evaluate`)."""
     axes.validate()
     B = len(axes)
     months = axes.envs[0].n_months
@@ -236,10 +238,38 @@ def _prepare(axes: SweepAxes, n_halls_max: int,
                               modulo=E_max) for t in traces]
     return SimpleNamespace(
         jt=jt, ft=ft, windows=[np.stack(w) for w in zip(*windows)],
-        h_caps=h_caps, n_real=[len(t) for t in traces], months=months,
+        policy=pl.policy_tensor(axes.policies, device), h_caps=h_caps,
+        n_real=[len(t) for t in traces], seeds=axes.seeds, months=months,
         topos=topos, X_pad=X_pad, with_pods=with_pods,
-        pod_scan_len=_pod_scan_len(traces),
+        legacy_pod_cond=legacy_pod_cond, pod_scan_len=_pod_scan_len(traces),
         hd_scan=max(t.n_hd_rows for t in topos))
+
+
+def _evaluate(prep, lo: int, hi: int, *, harvest: bool, mature_months: int,
+              exact_quantiles: bool = True, quantile_bins: int | None = None,
+              interpret: bool = False):
+    """`fleet.simulate_lifecycle` over configurations ``[lo, hi)`` of a
+    prepared batch: the topology, traces, windows, policies, hall caps,
+    event counts and seeds sliced on axis 0, the padded shapes and the
+    placement mode the whole batch's.  `sweep` runs ``[0, B)``; the
+    resilient executor (`resilience.resilient_sweep`) any chunk of it,
+    with the same bits in every row."""
+    return simulate_lifecycle(
+        type(prep.jt)(*(x[lo:hi] for x in prep.jt)),
+        type(prep.ft)(*(x[lo:hi] for x in prep.ft)),
+        *(w[lo:hi] for w in prep.windows), prep.policy[lo:hi],
+        prep.h_caps[lo:hi], prep.n_real[lo:hi],
+        harvest=harvest, mature_months=mature_months,
+        seeds=prep.seeds[lo:hi], with_pods=prep.with_pods,
+        legacy_pod_cond=prep.legacy_pod_cond,
+        pod_scan_len=prep.pod_scan_len, hd_scan=prep.hd_scan,
+        exact_quantiles=exact_quantiles, quantile_bins=quantile_bins,
+        interpret=interpret)
+
+
+def device_name(dev: torch.device) -> str:
+    """What a result's `device` field records."""
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
 
 
 def serving_tpw_rows(envs: Sequence[EnvelopeSpec],
@@ -386,14 +416,10 @@ def sweep(axes: SweepAxes, harvest: bool = True, mature_months: int = 12,
     """
     dev = resolve_device(device)
     prep = _prepare(axes, n_halls_max, traces, dev, legacy_pod_cond)
-    out = simulate_lifecycle(
-        prep.jt, prep.ft, *prep.windows,
-        pl.policy_tensor(axes.policies, dev), prep.h_caps, prep.n_real,
-        harvest=harvest, mature_months=mature_months, seeds=axes.seeds,
-        with_pods=prep.with_pods, legacy_pod_cond=legacy_pod_cond,
-        pod_scan_len=prep.pod_scan_len, hd_scan=prep.hd_scan,
-        exact_quantiles=exact_quantiles, quantile_bins=quantile_bins,
-        interpret=interpret)
-    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    out = _evaluate(prep, 0, len(axes), harvest=harvest,
+                    mature_months=mature_months,
+                    exact_quantiles=exact_quantiles,
+                    quantile_bins=quantile_bins, interpret=interpret)
     return _finalize(out, axes, prep.months, prep.topos, prep.X_pad,
-                     models=models, metric_year=metric_year, device=name)
+                     models=models, metric_year=metric_year,
+                     device=device_name(dev))

@@ -574,3 +574,53 @@ def test_moe_engine_launches_the_gating_kernel_per_layer_and_step(cuda):
             (cfg.n_layers * steps if flag else 0)
         outputs.append([r.output for r in reqs])
     assert outputs[0] == outputs[1]
+
+
+RESILIENT_FIELDS = ("halls_active", "deployed_mw", "p50_stranding",
+                    "p90_stranding", "final_hall_stranding",
+                    "final_lineup_stranding", "n_halls_built",
+                    "final_deployed_mw", "placed_fraction", "act_month",
+                    "reg_rows", "reg_counts", "total_capex",
+                    "dollars_per_tps")
+
+
+def test_resilient_sweep_resumes_bitwise_on_the_card(cuda, tmp_path):
+    """Chunks of 3 with a kill after chunk 1, then the resume: every field
+    bitwise the card's one-shot `sweep`, one launch per placement step of
+    the chunk the resume computes."""
+    from repro_torch.core.resilience import (FaultPlan, InjectedCrash,
+                                             resilient_sweep)
+    envs = [arrivals.EnvelopeSpec(demand_scale=0.004, gpu_scenario=sc,
+                                  end_year=2028) for sc in ("med", "high")]
+    axes = SweepAxes.product(designs=[hierarchy.get_design("4N/3"),
+                                      hierarchy.get_design("3+1")],
+                             envs=envs, seeds=(0, 1))
+    one_shot = sweep(axes, device=cuda)
+    with pytest.raises(InjectedCrash):
+        resilient_sweep(axes, chunk_size=3, checkpoint_dir=str(tmp_path),
+                        fault_plan=FaultPlan(crash_after=1), device=cuda)
+    before = kernel.placement_score.launches
+    res = resilient_sweep(axes, chunk_size=3, checkpoint_dir=str(tmp_path),
+                          device=cuda)
+    assert kernel.placement_score.launches - before == res.event_steps > 0
+    assert (res.report.chunks_resumed, res.report.chunks_computed) == (2, 1)
+    for f in RESILIENT_FIELDS:
+        a, b = np.asarray(getattr(res, f)), np.asarray(getattr(one_shot, f))
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), f
+
+
+def test_resilient_mc_sweep_chunks_bitwise_on_the_card(cuda):
+    from repro_torch.core.resilience import resilient_mc_sweep
+    axes = MCAxes.zip(designs=[hierarchy.get_design(n)
+                               for n in ("4N/3", "3+1", "10N/8")],
+                      seeds=[11, 12, 13])
+    kw = dict(n_trials=2, n_events=80, year=2030, scenario="high",
+              device=cuda)
+    one_shot = mc_sweep(axes, **kw)
+    res = resilient_mc_sweep(axes, chunk_size=2, **kw)
+    assert res.report.n_chunks == 2 and not res.report.quarantined
+    for f in ("lineup_stranding", "hall_stranding", "deployed_kw",
+              "saturated", "placed_a", "placed_b", "rows_a", "counts_a",
+              "rows_b", "counts_b"):
+        a, b = getattr(res, f), getattr(one_shot, f)
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), f
