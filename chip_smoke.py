@@ -46,12 +46,25 @@ read just after:
   the CPU's and the surviving rows bitwise the card's one-shot `sweep`;
   `resilience_resume`'s 1024 configurations in chunks of 256, crashed
   after chunk 2 and resumed, bitwise the one-shot `sweep`;
-  `resilience_overhead`'s 512 configurations in chunks of 128 with
-  checkpointing off and on, bitwise; a real CUDA OOM under a capped
+  `resilience_overhead`'s legs at 256 configurations (512 in
+  `benchmarks/run.py`) in chunks of 128 with checkpointing off and on,
+  bitwise; a real CUDA OOM under a capped
   allocator, halved without quarantine; Fig. 6 through
   `resilient_mc_sweep` in chunks of 16 configurations, crashed and
   resumed, bitwise `mc_sweep`; `placement_score` runs once per placement
   step of every chunk, retry and bisection range;
+* the sharded engines: the kernel at giant_grid's 512 x 720 chunk;
+  `benchmarks/run.py`'s giant_grid at full size, 10^4 configurations in
+  chunks of 512 with streaming quantiles through `sharded_sweep` over
+  every visible card (launches equal to the summed steps, the first
+  1024 rows bitwise a one-shot `sweep`, the first 16 configurations'
+  p50/p90 within one bucket of an exact `sweep`, peak allocated memory
+  within 10% of a 512-configuration run's, the exact/streaming peak at
+  the 128-hall probe printed); then `sharded_sweep` over two slabs of
+  card 0 (every card too, when there are several) on the fleet_study
+  grid at scale 0.01, at mesh shapes (2, 1) and (1, 2) and in chunks of
+  5, and `sharded_mc_sweep` on Fig. 5's grid flat and on a (1, 2) mesh
+  with a trial remainder, each bitwise `sweep` / `mc_sweep`;
 * Mamba2-2.7B serving: `smoke_config()` served on the CPU and on the card
   (float32), then the full-width model (d_model 2560, 32 of its 64
   layers, bf16 weights drawn from a generator seeded with 0) behind
@@ -472,11 +485,9 @@ def main_path(dev):
     from repro_torch.core.sweep import sweep
     from repro_torch.kernels.placement_score.kernel import placement_score
     axes, combos = fleet_axes(MAIN_SCALE)
-    t0 = time.perf_counter()
-    sweep(axes, device=dev)
-    print(f"main path warm-up: {time.perf_counter() - t0:.2f} s wall")
-
     runs, walls, launches = [], [], []
+    # the first run is the warm-up, held bitwise to the timed one (one
+    # timed repeat fewer than before, for the script's 600 s target)
     for _ in range(2):
         placement_score.launches = 0
         torch.cuda.synchronize()
@@ -514,7 +525,7 @@ def main_path(dev):
     steps = res.event_steps
     print(f"main path: {len(axes)} configurations at scale {MAIN_SCALE} on "
           f"{res.device}, {steps} event steps; wall per run "
-          f"{walls[0]:.3f} s, {walls[1]:.3f} s ("
+          f"{walls[0]:.3f} s (warm-up), {walls[1]:.3f} s ("
           f"{walls[0] / steps * 1e3:.3f}, {walls[1] / steps * 1e3:.3f} ms "
           f"per event step); repeats bitwise equal; equal to "
           f"interpret=True ({plain_wall:.3f} s wall with the plain version); "
@@ -1077,11 +1088,12 @@ def same_points(a, b, what):
 
 class StudySweeps:
     """Launch counting around one study call: zeroes `placement_score`'s
-    count, records the axes and `SweepResult` of every `sweep` the study
-    runs (through `payoff.sweep`), times each sweep's `_prepare` (trace
-    synthesis, batch assembly) and its lifecycle (the placement steps,
-    ended by a synchronize) apart from the rest, and checks one launch
-    per placement step. The study itself runs unchanged."""
+    count, records the axes and `SweepResult` of every sweep the study
+    runs (through `payoff.sharded_sweep` or `payoff.sweep`), times each
+    sweep's `_prepare` (trace synthesis, batch assembly) and its
+    lifecycle (the placement steps, ended by a synchronize) apart from
+    the rest, and checks one launch per placement step. The study itself
+    runs unchanged."""
 
     def __init__(self):
         self.axes, self.results = [], []
@@ -1103,17 +1115,20 @@ class StudySweeps:
         import torch
         from repro_torch.core import payoff, sweep as sweep_mod
         from repro_torch.kernels.placement_score.kernel import placement_score
-        self._saved = (payoff.sweep, sweep_mod._prepare,
+        self._saved = (payoff.sweep, payoff.sharded_sweep, sweep_mod._prepare,
                        sweep_mod.simulate_lifecycle)
 
-        def sweep(axes, *args, **kw):
-            res = self._saved[0](axes, *args, **kw)
-            self.axes.append(axes)
-            self.results.append(res)
-            return res
-        payoff.sweep = sweep
-        sweep_mod._prepare = self._timed(self._saved[1], "prepare_s")
-        sweep_mod.simulate_lifecycle = self._timed(self._saved[2], "steps_s")
+        def recorded(fn):
+            def run(axes, *args, **kw):
+                res = fn(axes, *args, **kw)
+                self.axes.append(axes)
+                self.results.append(res)
+                return res
+            return run
+        payoff.sweep = recorded(self._saved[0])
+        payoff.sharded_sweep = recorded(self._saved[1])
+        sweep_mod._prepare = self._timed(self._saved[2], "prepare_s")
+        sweep_mod.simulate_lifecycle = self._timed(self._saved[3], "steps_s")
         placement_score.launches = 0
         torch.cuda.synchronize()
         self._t0 = time.perf_counter()
@@ -1123,7 +1138,7 @@ class StudySweeps:
         import torch
         from repro_torch.core import payoff, sweep as sweep_mod
         from repro_torch.kernels.placement_score.kernel import placement_score
-        (payoff.sweep, sweep_mod._prepare,
+        (payoff.sweep, payoff.sharded_sweep, sweep_mod._prepare,
          sweep_mod.simulate_lifecycle) = self._saved
         if exc[0] is not None:
             return False
@@ -1366,7 +1381,8 @@ RESILIENCE_SCALE = 0.004  # tests/test_resilience.py's grid
 # benchmarks/run.py's full-size legs (configurations, chunk size); a
 # rehearsal on the CPU sets them lower
 RESUME_GRID = (1024, 256)       # resilience_resume
-OVERHEAD_GRID = (512, 128)      # resilience_overhead
+OVERHEAD_GRID = (256, 128)      # resilience_overhead (512 there; cut
+                                # for the script's 600 s target)
 OOM_CONFIGS = 512               # the real OOM's one chunk
 FAULT_BACKOFF = dict(base_s=0.0, max_retries=2)
 RESULT_FIELDS = SWEEP_FIELDS + ("initial_dpm", "total_capex",
@@ -1558,8 +1574,9 @@ def resume_main_path(dev):
 
 
 def overhead_legs(dev):
-    """`resilience_overhead`'s legs (benchmarks/run.py:851-895): 512
-    configurations in chunks of 128 through `resilient_sweep`, durability
+    """`resilience_overhead`'s legs (benchmarks/run.py:851-895), at 256
+    configurations (`OVERHEAD_GRID`; 512 there) in chunks of 128 through
+    `resilient_sweep`, durability
     off, on, on, off; the results bitwise equal; the on/off ratio of the
     walls printed, not gated (the host moves walls between calls)."""
     import shutil
@@ -1567,6 +1584,7 @@ def overhead_legs(dev):
     from repro_torch.core.resilience import resilient_sweep
     from repro_torch.kernels.placement_score.kernel import placement_score
     n_cfg, chunk = OVERHEAD_GRID
+    n_chunks = -(-n_cfg // chunk)
     axes, traces = resilience_grid(n_cfg)
     kw = dict(chunk_size=chunk, traces=traces, exact_quantiles=False,
               device=dev)
@@ -1587,7 +1605,8 @@ def overhead_legs(dev):
         if placement_score.launches != res.event_steps:
             raise AssertionError("overhead: launches differ from steps")
         if leg == "on":
-            if timer.commits != 4 or res.report.chunks_computed != 4:
+            if timer.commits != n_chunks or \
+                    res.report.chunks_computed != n_chunks:
                 raise AssertionError(f"overhead: {timer.commits} commits")
             commit.append(timer.commit_s)
         runs.append(res)
@@ -1595,11 +1614,12 @@ def overhead_legs(dev):
         same_fields(res, runs[0], RESULT_FIELDS, "overhead on vs off")
     off, on = sum(walls["off"]), sum(walls["on"])
     steps = runs[0].event_steps
-    print(f"overhead: {len(axes)} configurations in 4 chunks of {chunk}, "
-          f"{steps} placement steps = launches per run; walls off "
+    print(f"overhead: {len(axes)} configurations in {n_chunks} chunks of "
+          f"{chunk}, {steps} placement steps = launches per run; walls off "
           f"{walls['off'][0]:.3f}, {walls['off'][1]:.3f} s, on "
           f"{walls['on'][0]:.3f}, {walls['on'][1]:.3f} s (commits "
-          f"{commit[0]:.3f}, {commit[1]:.3f} s for 4 chunks); on/off "
+          f"{commit[0]:.3f}, {commit[1]:.3f} s for {n_chunks} chunks); "
+          f"on/off "
           f"{on / off:.4f}; {off / 2 / steps * 1e3:.3f} ms per step off; "
           f"the four results bitwise equal")
     return steps
@@ -1795,6 +1815,282 @@ def resilient_mc_path(dev):
           f"{r.chunks_resumed} resumed, {r.chunks_computed} computed "
           f"({launches} launches = steps); crash + resume {wall:.3f} s; "
           f"every output and registry bitwise the card's mc_sweep")
+    return launches
+
+
+
+# ------------------------------------------------------- sharded engines
+
+# benchmarks/run.py's giant_grid (:723-829): configurations, chunk size,
+# and the hall cap of its temp-memory probe (:799-803)
+GIANT_GRID = (10_000, 512)
+GIANT_PROBE_HALLS = 128
+GIANT_BITWISE_ROWS = 1024   # every (design, trace) pair, the same shapes
+GIANT_EXACT_ROWS = 16       # giant_grid.equivalence's sub-grid
+GIANT_MEMORY_SLACK = 0.10   # peak allocated, 10^4 against 512
+SPLIT_SCALE = 0.01          # the fleet_study grid at giant_grid's scale
+
+
+def check_kernel_giant_chunk_shape(dev):
+    """The kernel check at giant_grid's chunk: 512 configurations of its
+    geometry (the resilience grid's, 720 padded rows each)."""
+    from repro_torch.core.sweep import _prepare
+    axes, traces = resilience_grid(GIANT_GRID[1])
+    jt = _prepare(axes, 0, traces, dev).jt
+    N, R = jt.row_cap.shape[:2]
+    return dict(rows=f"{N}x{R}", **check_kernel(
+        dev, jt, "giant_grid's chunk"))
+
+
+def allocated_peak(run):
+    """(result, the largest rise of allocated memory over what was
+    allocated before, over the cards) of `run()`: `max_memory_allocated`
+    from reset peaks, less the tensors earlier phases still hold."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = torch.cuda.device_count()
+    base = []
+    for i in range(n):
+        torch.cuda.reset_peak_memory_stats(i)
+        base.append(torch.cuda.memory_allocated(i))
+    res = run()
+    torch.cuda.synchronize()
+    return res, max(torch.cuda.max_memory_allocated(i) - base[i]
+                    for i in range(n))
+
+
+class PrepareTimer:
+    """Seconds spent in `sweep._prepare` (trace-free batch assembly:
+    topologies, windows, the staged tensors) while the block runs."""
+
+    def __enter__(self):
+        from repro_torch.core import sweep as sweep_mod
+        self.saved, self.seconds = sweep_mod._prepare, 0.0
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = self.saved(*args, **kw)
+            self.seconds += time.perf_counter() - t0
+            return out
+        sweep_mod._prepare = timed
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import sweep as sweep_mod
+        sweep_mod._prepare = self.saved
+        return False
+
+
+def giant_grid_path(dev):
+    """giant_grid (benchmarks/run.py:723-829) at its full size through
+    `sharded_sweep` (every visible card): 10^4 configurations in chunks
+    of 512, streaming quantiles; launches equal the summed steps; the
+    first 1024 rows bitwise a one-shot `sweep` of them; the first 16
+    configurations' streaming p50/p90 within one bucket of an exact
+    `sweep`; peak allocated memory within 10% of a 512-configuration
+    run's (live memory flat in the grid's size); the exact/streaming
+    peak-allocated ratio at the probe grid (128 halls)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import hierarchy
+    from repro_torch.core.arrivals import EnvelopeSpec
+    from repro_torch.core.sweep import SweepAxes, sharded_sweep, sweep
+    from repro_torch.kernels.placement_score.kernel import placement_score
+    n_cfg, chunk = GIANT_GRID
+    t0 = time.perf_counter()
+    axes, traces = resilience_grid(n_cfg)
+    axes_s = time.perf_counter() - t0
+
+    def giant():
+        with PrepareTimer() as timer:
+            placement_score.launches = 0
+            t0 = time.perf_counter()
+            res = sharded_sweep(axes, traces=traces, exact_quantiles=False,
+                                chunk_size=chunk)
+            torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, timer.seconds, \
+            placement_score.launches
+    (res, wall, prep_s, launches), peak = allocated_peak(giant)
+    steps = res.event_steps
+    if launches != steps:
+        raise AssertionError(f"giant_grid: {launches} placement_score "
+                             f"launches for {steps} placement steps")
+    M = len(res.months)
+    if res.halls_active.shape != (n_cfg, M) or len(res) != n_cfg:
+        raise AssertionError("giant_grid: not one row per configuration")
+    if not (np.all(res.n_halls_built >= 1)
+            and np.all(np.isfinite(res.final_deployed_mw))
+            and np.all((res.placed_fraction >= 0)
+                       & (res.placed_fraction <= 1))):
+        raise AssertionError("giant_grid: outputs out of range")
+
+    sub, sub_traces = resilience_grid(GIANT_BITWISE_ROWS)
+    one_shot, wall_one = timed_sweep(sub, dev, traces=sub_traces,
+                                     exact_quantiles=False)
+    same_fields(res, one_shot, RESULT_FIELDS,
+                f"giant_grid's first {GIANT_BITWISE_ROWS} rows vs a "
+                "one-shot sweep", rows=slice(0, GIANT_BITWISE_ROWS))
+
+    n_sub = GIANT_EXACT_ROWS
+    exact = sweep(SweepAxes.zip(designs=axes.designs[:n_sub],
+                                envs=axes.envs[:n_sub],
+                                seeds=axes.seeds[:n_sub]),
+                  traces=traces[:n_sub], device=dev)
+    gap = 0.0
+    for f in ("p50_stranding", "p90_stranding"):
+        e, s = getattr(exact, f), getattr(res, f)[:n_sub]
+        if not np.array_equal(np.isnan(e), np.isnan(s)):
+            raise AssertionError(f"giant_grid: streaming `{f}` NaN months "
+                                 "differ from the exact")
+        gap = max(gap, float(np.nanmax(np.abs(s - e))))
+    if gap > STREAM_TOL:
+        raise AssertionError(f"giant_grid: streaming p50/p90 off by {gap} "
+                             f"(limit {STREAM_TOL})")
+
+    small, small_traces = resilience_grid(chunk)
+    kw = dict(traces=small_traces, exact_quantiles=False, chunk_size=chunk)
+    small_res, peak_small = allocated_peak(
+        lambda: sharded_sweep(small, **kw))
+    same_fields(small_res, res, RESULT_FIELDS, "giant_grid's first chunk "
+                "vs a 512-configuration run", rows=slice(0, chunk))
+    if abs(peak / peak_small - 1) > GIANT_MEMORY_SLACK:
+        raise AssertionError(f"giant_grid: peak allocated {peak} B against "
+                             f"{peak_small} B at {chunk} configurations")
+    pwall, busy, n_device, top = profile_run(
+        lambda: sharded_sweep(small, **kw))
+
+    probe = SweepAxes.zip(
+        designs=[hierarchy.get_design(d) for d in ("4N/3", "3+1")],
+        envs=[EnvelopeSpec(demand_scale=0.01, gpu_scenario="high")],
+        seeds=[41, 42])
+    probe_peaks = {}
+    for exact_q in (True, False):
+        probe_res, probe_peaks[exact_q] = allocated_peak(lambda: sweep(
+            probe, n_halls_max=GIANT_PROBE_HALLS, exact_quantiles=exact_q,
+            device=dev))
+    for name, (calls, secs) in top[:5]:
+        print(f"  device {secs:8.4f} s {calls:8d} calls  {name[:90]}")
+    print(f"giant_grid: {n_cfg} configurations in chunks of {chunk} on "
+          f"{res.device} (streaming quantiles); axes and 8 traces "
+          f"{axes_s:.3f} s, _prepare {prep_s:.3f} s; wall {wall:.3f} s, "
+          f"{n_cfg / wall:.1f} configurations/s, {steps} placement steps "
+          f"= launches ({wall / steps * 1e3:.3f} ms per step, "
+          f"{(wall - prep_s) / steps * 1e3:.3f} without _prepare); first "
+          f"{GIANT_BITWISE_ROWS} rows bitwise the one-shot sweep "
+          f"({wall_one:.3f} s, {one_shot.event_steps} steps); streaming "
+          f"p50/p90 within {gap:.3e} of exact on {n_sub} configurations "
+          f"(limit {STREAM_TOL:.3e}); peak allocated {peak / 2**20:.1f} "
+          f"MiB against {peak_small / 2**20:.1f} MiB at {chunk} "
+          f"configurations (ratio {peak / peak_small:.4f}); one chunk "
+          f"({chunk} configurations, {small_res.event_steps} steps) "
+          f"profiled: {pwall:.3f} s wall, device busy {busy:.3f} s, idle "
+          f"share {1 - busy / pwall:.3f}, {n_device} kernels and copies "
+          f"({n_device / small_res.event_steps:.1f} per step); probe "
+          f"({len(probe)} configurations, {GIANT_PROBE_HALLS} halls, "
+          f"{probe_res.event_steps} steps) peak allocated exact "
+          f"{probe_peaks[True] / 2**20:.2f} MiB, streaming "
+          f"{probe_peaks[False] / 2**20:.2f} MiB, exact/streaming "
+          f"{probe_peaks[True] / probe_peaks[False]:.3f}")
+    return dict(launches=launches, one_shot_1024=one_shot.event_steps,
+                chunk_512=small_res.event_steps)
+
+
+def split_devices():
+    """The device lists the split phases run over: two slabs on card 0,
+    and every card when there are several."""
+    import torch
+    lists = [["cuda:0"] * 2]
+    if torch.cuda.device_count() > 1:
+        lists.append([f"cuda:{i}" for i in range(torch.cuda.device_count())])
+    return lists
+
+
+def threaded_slabs(jobs):
+    """`sharding.dispatch.run_slabs` with each (device, fn) slab on a host
+    thread and a CUDA stream of its own: the dispatch the port measured
+    slower (PERF.md §6), kept here to time it against the slabs in
+    turn."""
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+
+    def on_stream(dev, fn):
+        with torch.cuda.device(dev), torch.cuda.stream(
+                torch.cuda.Stream(dev)):
+            return fn()
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futures = [pool.submit(on_stream, dev, fn) for dev, fn in jobs]
+    return [f.result() for f in futures]
+
+
+def split_main_path(dev):
+    """`sharded_sweep` over two slabs of one card (and over every card
+    when there are several) on the fleet_study grid at scale 0.01
+    (`SPLIT_SCALE`), at mesh shapes (2, 1) and (1, 2) and in chunks of 5;
+    then `sharded_mc_sweep` on Fig. 5's grid, flat and on a (1, 2) mesh
+    with 15 trials (a remainder); each bitwise the card's `sweep` /
+    `mc_sweep`, one launch per placement step of every slab.  The
+    (D, 1) run goes once more with each slab on a host thread of its
+    own (`threaded_slabs`, the dispatch `sharding.dispatch.run_slabs`
+    does not use).  The walls of two slabs against one, and of threads
+    against turns, are printed, not gated."""
+    import torch
+    from repro_torch.core.mc_sweep import mc_sweep, sharded_mc_sweep
+    from repro_torch.core.sweep import sharded_sweep
+    from repro_torch.kernels.placement_score.kernel import placement_score
+    from repro_torch.sharding import dispatch
+    axes, _ = fleet_axes(SPLIT_SCALE)
+    one, wall_one = timed_sweep(axes, dev)
+    mc_axes, mc_kw = mc_figures()["fig5"]
+    mc_kw15 = dict(mc_kw, n_trials=mc_kw["n_trials"] - 1)
+    mc_one = {16: mc_sweep(mc_axes, device=dev, **mc_kw),
+              15: mc_sweep(mc_axes, device=dev, **mc_kw15)}
+    launches, lines = {}, []
+    for devices in split_devices():
+        label = "x".join(devices) if len(set(devices)) > 1 else \
+            f"{len(devices)} slabs on {devices[0]}"
+        D = len(devices)
+        runs = [(f"{D}x1", sharded_sweep, dict(mesh_shape=(D, 1)), one,
+                 RESULT_FIELDS),
+                (f"{D}x1 threads", sharded_sweep,
+                 dict(mesh_shape=(D, 1)), one, RESULT_FIELDS),
+                (f"1x{D}", sharded_sweep, dict(mesh_shape=(1, D)), one,
+                 RESULT_FIELDS),
+                ("chunks of 5", sharded_sweep, dict(chunk_size=5), one,
+                 RESULT_FIELDS),
+                ("MC flat", sharded_mc_sweep, mc_kw, mc_one[16],
+                 MC_FIELDS),
+                (f"MC 1x{D}, 15 trials", sharded_mc_sweep,
+                 dict(mc_kw15, mesh_shape=(1, D)), mc_one[15], MC_FIELDS)]
+        walls = {}
+        for name, fn, kw, want, fields in runs:
+            a = mc_axes if fn is sharded_mc_sweep else axes
+            in_turn = dispatch.run_slabs
+            if name.endswith("threads"):
+                dispatch.run_slabs = threaded_slabs
+            try:
+                placement_score.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = fn(a, devices=devices, **kw)
+                torch.cuda.synchronize()
+                walls[name] = time.perf_counter() - t0
+            finally:
+                dispatch.run_slabs = in_turn
+            if placement_score.launches != res.event_steps:
+                raise AssertionError(f"split {label} {name}: "
+                                     f"{placement_score.launches} launches "
+                                     f"for {res.event_steps} steps")
+            same_fields(res, want, fields, f"split {label} {name}")
+            launches[f"{label}: {name}"] = res.event_steps
+        lines.append(f"{label}: " + ", ".join(
+            f"{k} {v:.3f} s ({launches[f'{label}: {k}']} steps)"
+            for k, v in walls.items()))
+    print(f"split: fleet_study grid ({len(axes)} configurations at scale "
+          f"{SPLIT_SCALE}) one slab {wall_one:.3f} s ({one.event_steps} "
+          f"steps); " + "; ".join(lines) + "; every run bitwise the card's "
+          "sweep / mc_sweep, one launch per step of every slab")
     return launches
 
 
@@ -3164,6 +3460,7 @@ def main():
     pod_stats = check_kernel_pod_shapes(dev)
     scenario_stats = check_kernel_scenario_shape(dev)
     resilience_stats = check_kernel_resilience_shape(dev)
+    giant_chunk_stats = check_kernel_giant_chunk_shape(dev)
     timings["kernel check"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -3264,6 +3561,14 @@ def main():
     timings["resilient MC"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
+    sharded_launches = {"giant_grid": giant_grid_path(dev)}
+    timings["giant_grid"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    sharded_launches["split"] = split_main_path(dev)
+    timings["split"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
     serve_golden(dev)
     timings["serving golden"] = time.perf_counter() - t0
 
@@ -3309,7 +3614,9 @@ def main():
              study_launches=study_launches, scenario_shape=scenario_stats,
              study_shapes=study_stats,
              resilience_launches=resilience_launches,
-             resilience_chunk_shape=resilience_stats),
+             resilience_chunk_shape=resilience_stats,
+             sharded_launches=sharded_launches,
+             giant_chunk_shape=giant_chunk_stats),
         dict(name="ssd_scan", route="cuda",
              source="src/repro_torch/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan/kernel.py:52",

@@ -37,6 +37,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 
 class ChecksumError(RuntimeError):
     """A committed checkpoint's payload does not match its manifest
@@ -301,14 +303,20 @@ class Checkpointer:
         return leaves, meta
 
     def restore(self, target: Any, step: Optional[int] = None,
-                device=None, verify: bool = True):
+                shardings: Any = None, device=None, verify: bool = True):
         """Restore into the structure of `target` (a pytree of tensors or
-        arrays), as tensors on `device` (default: the CPU), each cast to
-        its target leaf's dtype.  Returns `(state, step)`.
+        arrays), each leaf cast to its target leaf's dtype.  Returns
+        `(state, step)`.
 
-        `repro`'s `shardings` argument (re-placement onto a device mesh)
-        is not taken: it waits for the sharded engines of ROADMAP queue 1,
-        item 9; one device is named explicitly instead."""
+        Placement follows `repro`'s ``jax.device_put``: by default every
+        leaf goes to the card (``"cuda"``, which raises without one);
+        `shardings`, a pytree of the same structure as `target` whose
+        leaves are `torch.device`s or device strings, places each leaf
+        on its own device; `device` names one device for every leaf
+        (``device="cpu"`` for the host)."""
+        if shardings is not None and device is not None:
+            raise ValueError("restore takes `shardings` or `device`, not "
+                             "both")
         step = self._step(step)
         data, meta = self._read(step, verify)
         leaves, treedef = tree_flatten(target)
@@ -316,10 +324,18 @@ class Checkpointer:
             raise ValueError(
                 f"checkpoint has {len(data.files)} leaves, target expects "
                 f"{len(leaves)} — structure mismatch")
-        dev = torch.device(device) if device is not None \
-            else torch.device("cpu")
+        if shardings is not None:
+            places, sh_def = tree_flatten(shardings)
+            if str(sh_def) != str(treedef):
+                raise ValueError(
+                    f"shardings {sh_def} do not match the target's "
+                    f"structure {treedef}")
+            devs = [resolve_device(d) for d in places]
+        else:
+            devs = [resolve_device("cuda" if device is None
+                                   else device)] * len(leaves)
         out = []
-        for i, ref in enumerate(leaves):
+        for i, (ref, dev) in enumerate(zip(leaves, devs)):
             x = _decode(data[f"leaf_{i}"], meta["dtypes"][i])
             t = x if torch.is_tensor(x) else torch.from_numpy(
                 np.ascontiguousarray(x))

@@ -20,8 +20,9 @@ N·R rows.  Pod traces (``pod_racks > 1``) run the split-pods path (a pod
 window over the HD-compacted rows, then a cluster window) or, with
 ``legacy_pod_cond=True``, the per-event cond; both place alike.
 `resilience.resilient_mc_sweep` runs the same batch in checkpointed,
-fault-isolated chunks of configurations.  `sharded_mc_sweep`, the grid
-split over several cards, waits for ROADMAP queue 1, item 9.
+fault-isolated chunks of configurations, and `sharded_mc_sweep` splits
+it over a device list (flat slabs of trials, or configuration × trial
+blocks), every output bitwise `mc_sweep`'s.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from . import arrivals, cost, placement as pl, prng, projections as proj
 from . import throughput as tp
@@ -38,8 +40,9 @@ from .hierarchy import (DesignSpec, HallTopology, SweepValidationError,
                         build_topology)
 from .placement import DEFAULT_POLICY, POLICY_NAMES, Topology
 from .singlehall import TraceArrays, run_trial
-from .sweep import _broadcast, device_name
-from ..device import resolve_device
+from .sweep import _broadcast
+from ..device import device_name, resolve_device
+from ..sharding import axes as shax, dispatch
 
 
 @dataclass
@@ -285,30 +288,49 @@ class MCOutputs(NamedTuple):
     pod_steps: int
 
 
-def _mc_evaluate(args, mode: dict, n_trials: int, lo: int, hi: int, *,
-                 harvest: bool, interpret: bool = False) -> MCOutputs:
-    """`singlehall.run_trial` over configurations ``[lo, hi)`` of a
-    `_mc_prepare` batch: trials ``[lo·T, hi·T)`` of the topology, keys
-    and policy (axis 0) and of the event-major traces (axis 1), under the
-    whole batch's placement `mode`.  `mc_sweep` runs ``[0, B)``; the
-    resilient executor (`resilience.resilient_mc_sweep`) any chunk of
-    it, with the same bits in every row."""
+def _mc_evaluate_trials(args, mode: dict, trials, *, harvest: bool,
+                        interpret: bool = False, device=None) -> MCOutputs:
+    """`singlehall.run_trial` over an index set of a `_mc_prepare`
+    batch's flat (configuration × trial) axis: `trials`, a slice or an
+    index tensor, selects the topology, keys and policy (axis 0) and the
+    event-major traces (axis 1), run under the whole batch's placement
+    `mode` (on `device` when given; else where `_mc_prepare` staged
+    them).  The outputs are flat, ``[n, …]``, on the host.  Every caller
+    runs this one evaluator: `mc_sweep` and the resilient executor over
+    configuration ranges (`_mc_evaluate`), `sharded_mc_sweep` over its
+    slabs and blocks."""
+    def take(x, axis=0):
+        x = x[trials] if axis == 0 else x[:, trials].contiguous()
+        return x if device is None else x.to(device)
+
     jt, ta, tb, keys, policy = args
-    a, b = lo * n_trials, hi * n_trials
-    jt = Topology(*(x[a:b] for x in jt))
-    ta, tb = (TraceArrays(*(x[:, a:b].contiguous() for x in t))
-              for t in (ta, tb))
+    jt = Topology(*(take(x) for x in jt))
+    ta, tb = (TraceArrays(*(take(x, 1) for x in t)) for t in (ta, tb))
     state, res_a, res_b = run_trial(jt, pl.init_state(jt), ta, tb,
-                                    policy[a:b], keys[a:b], harvest=harvest,
-                                    interpret=interpret, **mode)
+                                    take(policy), take(keys),
+                                    harvest=harvest, interpret=interpret,
+                                    **mode)
     out = (pl.lineup_stranding(jt, state), pl.hall_stranding(jt, state)[:, 0],
            pl.deployed_kw(state), res_b.saturated, res_a.placed,
            res_b.placed, res_a.rows, res_a.counts, res_b.rows, res_b.counts)
-    return MCOutputs(
-        *(x.cpu().numpy().reshape((hi - lo, n_trials) + x.shape[1:])
-          for x in out),
-        event_steps=res_a.steps + res_b.steps,
-        pod_steps=res_a.pod_steps + res_b.pod_steps)
+    return MCOutputs(*(x.cpu().numpy() for x in out),
+                     event_steps=res_a.steps + res_b.steps,
+                     pod_steps=res_a.pod_steps + res_b.pod_steps)
+
+
+def _mc_evaluate(args, mode: dict, n_trials: int, lo: int, hi: int, *,
+                 harvest: bool, interpret: bool = False) -> MCOutputs:
+    """`_mc_evaluate_trials` over configurations ``[lo, hi)`` (trials
+    ``[lo·T, hi·T)``), the outputs shaped ``[hi − lo, T, …]``.
+    `mc_sweep` runs ``[0, B)``; the resilient executor
+    (`resilience.resilient_mc_sweep`) any chunk of it, with the same bits
+    in every row."""
+    T = n_trials
+    out = _mc_evaluate_trials(args, mode, slice(lo * T, hi * T),
+                              harvest=harvest, interpret=interpret)
+    return out._replace(**{f: getattr(out, f).reshape(
+        (hi - lo, T) + getattr(out, f).shape[1:])
+        for f in MCOutputs._fields[:10]})
 
 
 def _mc_finalize(out, axes: MCAxes, models=None, year: int = 2028,
@@ -407,4 +429,82 @@ def mc_sweep(axes: MCAxes, n_trials: int = 32, n_events: int = 600,
     res.rows_a, res.counts_a, res.rows_b, res.counts_b = out[6:10]
     res.event_steps, res.pod_steps = out.event_steps, out.pod_steps
     res.device = device_name(dev)
+    return res
+
+
+def sharded_mc_sweep(axes: MCAxes, n_trials: int = 32, n_events: int = 600,
+                     year: int = 2028, scenario: str = proj.MED,
+                     gpu_power_share: float = 0.6, pod_racks: int = 1,
+                     quantum_racks: int = 10, la_fraction: float = 0.0,
+                     harvest: bool = True, single_sku_gpu: bool = False,
+                     refill_events: int | None = None,
+                     legacy_pod_cond: bool = False, devices=None,
+                     models=None, interpret: bool = False,
+                     mesh_shape: Tuple[int, int] | None = None) -> MCResult:
+    """`mc_sweep`, with the (config × trial) grid split over devices.
+
+    The batch is prepared once on the host (`_mc_prepare`, its axis the
+    flat N = B·T), and each device runs its part through
+    `_mc_evaluate_trials` (in turn: `sharding.dispatch.run_slabs`),
+    under the whole batch's placement mode, so every output is bitwise
+    `mc_sweep`'s.  Two placements on the (config × trial) mesh of
+    `sharding.axes.sweep_mesh` (devices default: every visible card):
+
+    * default (`mesh_shape=None` or a trial extent of 1): contiguous
+      slabs of the flat trial axis, product-sharded over the mesh
+      (`sharding.axes.batch_slabs`), which balances the load even when
+      B is smaller than the device count;
+    * ``mesh_shape=(dc, dt)`` with ``dt > 1``: device (i, j) runs
+      configuration block i × trial block j (`sharding.axes.grid_blocks`),
+      chosen from the flat axis by index.
+
+    The outputs go back to ``[B, T, …]``; `event_steps` and `pod_steps`
+    sum over the devices' runs (each runs every step), so they count
+    the kernel's launches.  `repro`'s padding replicas are not needed
+    here: exactly B·T trials run.  One device, or one trial in all, is
+    `mc_sweep`.  An error on any device propagates.
+    """
+    kw = dict(n_trials=n_trials, n_events=n_events, year=year,
+              scenario=scenario, gpu_power_share=gpu_power_share,
+              pod_racks=pod_racks, quantum_racks=quantum_racks,
+              la_fraction=la_fraction, harvest=harvest,
+              single_sku_gpu=single_sku_gpu, refill_events=refill_events,
+              legacy_pod_cond=legacy_pod_cond, models=models,
+              interpret=interpret)
+    devs = shax.local_devices(devices)
+    B, T = len(axes), int(n_trials)
+    if len(devs) <= 1 or B * T == 1:
+        return mc_sweep(axes, device=devs[0], **kw)
+    mesh = shax.sweep_mesh(devs, mesh_shape)
+    dispatch.build_kernel(axes, devs, interpret)
+    args, mode = _mc_prepare(
+        axes, n_trials, n_events, year, scenario, gpu_power_share,
+        pod_racks, quantum_racks, la_fraction, single_sku_gpu,
+        refill_events, torch.device("cpu"), legacy_pod_cond)
+    if mesh.devices.shape[1] > 1:
+        parts = [(d, (torch.arange(*b)[:, None] * T
+                      + torch.arange(*t)).reshape(-1))
+                 for d, b, t in shax.grid_blocks(mesh, B, T)
+                 if b[0] < b[1] and t[0] < t[1]]
+    else:
+        parts = [(d, slice(a, b)) for d, a, b in
+                 shax.batch_slabs(mesh, 0, B * T) if a < b]
+    outs = dispatch.run_slabs([(d, functools.partial(
+        _mc_evaluate_trials, args, mode, idx, harvest=harvest,
+        interpret=interpret, device=d)) for d, idx in parts])
+    flat = []
+    for f in range(10):
+        first = outs[0][f]
+        full = np.empty((B * T,) + first.shape[1:], first.dtype)
+        for (_, idx), o in zip(parts, outs):
+            full[idx if isinstance(idx, slice) else idx.numpy()] = o[f]
+        flat.append(full.reshape((B, T) + first.shape[1:]))
+    res = _mc_finalize(flat[:6], axes, models=models, year=year,
+                       scenario=scenario,
+                       gpu_share=1.0 if single_sku_gpu else gpu_power_share,
+                       pod_racks=pod_racks)
+    res.rows_a, res.counts_a, res.rows_b, res.counts_b = flat[6:10]
+    res.event_steps = sum(o.event_steps for o in outs)
+    res.pod_steps = sum(o.pod_steps for o in outs)
+    res.device = dispatch.devices_name(devs)
     return res

@@ -19,11 +19,13 @@ quantum × seed evaluated on one sweep grid, priced against the Table 2
 model suite by the sweep's metric stage, with Pareto-dominated
 (delivered tokens/s vs. effective capex) points flagged per model.
 
-Every study runs its fleet simulations through `sweep.sweep` on one
-device (``device="cuda"`` by default; ``device="cpu"`` when asked for);
-the metric stage after it is host math.  `repro`'s `sharded` option
-(the grid split over several cards through `sharded_sweep`) is left out
-until the port can split a grid: ROADMAP queue 1, item 9.
+Every study runs its fleet simulations as one batched sweep, through
+`sweep.sharded_sweep` as `repro`'s do (`pod_payoff_study` always, the
+frontiers unless ``sharded=False``, which runs `sweep.sweep`); the
+metric stage after it is host math.  ``device="cuda"`` (the default)
+means every visible card under `sharded_sweep` and the current card
+under `sweep`; any other device (``"cpu"``, ``"cuda:1"``) is that one
+device.  On one card both routes give the same results and launches.
 """
 from __future__ import annotations
 
@@ -31,12 +33,21 @@ from dataclasses import dataclass, replace
 from typing import Dict, Optional, Sequence
 
 import numpy as np
+import torch
 
 from . import fleet, hierarchy, projections as proj, scenarios as sc
 from . import throughput as tp
 from .arrivals import EnvelopeSpec
 from .hierarchy import DesignSpec
-from .sweep import SweepAxes, gpu_power_share, sweep
+from .sweep import SweepAxes, gpu_power_share, sharded_sweep, sweep
+
+
+def _sharded(axes, device, **kw):
+    """`sharded_sweep` over the devices `device` names: every visible
+    card for a bare ``"cuda"``, else that one device."""
+    dev = torch.device(device)
+    devices = None if dev.type == "cuda" and dev.index is None else [dev]
+    return sharded_sweep(axes, devices=devices, **kw)
 
 
 @dataclass
@@ -71,7 +82,7 @@ def pod_payoff_study(design: DesignSpec, models: Sequence[tp.MoEModel],
     """Fleet-cost side is model-independent (the hierarchy sees only the
     placement quantum), so fleet sims are run once per pod size and reused
     across models: all missing pod sizes are evaluated in one batched
-    `sweep` on `device`.  `fleet_cache` may be shared across designs'
+    `sharded_sweep` on `device`.  `fleet_cache` may be shared across designs'
     calls.  The default envelope sets `pod_scale_arch` for every pod size,
     1 included."""
     env = env or EnvelopeSpec(demand_scale=0.05, gpu_scenario=proj.HIGH,
@@ -84,7 +95,7 @@ def pod_payoff_study(design: DesignSpec, models: Sequence[tp.MoEModel],
                              envs=[replace(env, pod_racks=n)
                                    for n in missing],
                              seeds=[seed])
-        res = sweep(axes, device=device)
+        res = _sharded(axes, device)
         for i, n in enumerate(missing):
             results[n] = res.result(i)
 
@@ -153,15 +164,16 @@ def scenario_frontier(design: DesignSpec,
                       base_env: Optional[EnvelopeSpec] = None,
                       seeds: Sequence[int] = (0,),
                       families: Optional[Dict[str, sc.ScenarioBatch]] = None,
+                      sharded: bool = True,
                       metric_model: str = "MoE-132T",
                       device="cuda") -> list[ScenarioPoint]:
     """Beyond-the-paper scenario study (docs/scenarios.md).
 
     Evaluates `design` on the paper baseline plus every scenario family
-    (defaults: `scenarios.all_families(base_env)`) as one batched `sweep`
-    on `device`, and returns one `ScenarioPoint` per (scenario, seed)
-    with stranding and effective-capex deltas against the same-seed
-    baseline.
+    (defaults: `scenarios.all_families(base_env)`) as one batched sweep
+    on `device` (`sharded_sweep` when `sharded`, else `sweep`), and
+    returns one `ScenarioPoint` per (scenario, seed) with stranding and
+    effective-capex deltas against the same-seed baseline.
 
         pts = scenario_frontier(hierarchy.get_design("3+1"),
                                 EnvelopeSpec(demand_scale=0.01))
@@ -172,7 +184,8 @@ def scenario_frontier(design: DesignSpec,
     axes = sc.frontier_axes([design], base=base_env, seeds=seeds,
                             families=families)
     models = tuple(m for m in tp.MODEL_SUITE if m.name == metric_model)
-    res = sweep(axes, models=models, device=device)
+    res = (_sharded(axes, device, models=models) if sharded
+           else sweep(axes, models=models, device=device))
     tps = (res.delivered_tps[:, 0] if models
            else np.zeros(len(axes)))
     dpt = (res.dollars_per_tps[:, 0] if models
@@ -246,12 +259,14 @@ def design_frontier(designs: Sequence[DesignSpec] | None = None,
                     models: Sequence[tp.MoEModel] | None = None,
                     seeds: Sequence[int] = (0,),
                     metric_year: int | None = None,
+                    sharded: bool = True,
                     device="cuda") -> list[FrontierPoint]:
     """Pareto frontier over the full design grid: delivered tokens/s vs.
     effective capex (the paper's $/performance planning objective).
 
     Evaluates designs × pod quanta (`scenarios.pod_quanta` tags) × seeds
-    as one batched `sweep` on `device` whose metric stage prices every
+    as one batched sweep on `device` (`sharded_sweep` when `sharded`,
+    else `sweep`) whose metric stage prices every
     configuration against `models` (default: the Table 2 suite), then
     flags Pareto-dominated points per model: domination is only
     meaningful between configurations serving the same model.
@@ -265,7 +280,9 @@ def design_frontier(designs: Sequence[DesignSpec] | None = None,
         EnvelopeSpec(demand_scale=0.02, gpu_scenario=proj.HIGH)
     batch = sc.pod_quanta(base_env, pod_sizes=pod_sizes)
     axes = batch.axes(designs, seeds=seeds)
-    res = sweep(axes, models=models, metric_year=metric_year, device=device)
+    kw = dict(models=models, metric_year=metric_year)
+    res = (_sharded(axes, device, **kw) if sharded
+           else sweep(axes, device=device, **kw))
     if not res.model_names:
         raise ValueError("design_frontier needs a non-empty model suite")
 

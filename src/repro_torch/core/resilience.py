@@ -63,15 +63,14 @@ import numpy as np
 import torch
 
 from ..checkpoint.checkpointer import Checkpointer
-from ..device import resolve_device
-from ..kernels.placement_score.kernel import LIBRARY as _SCORE_LIBRARY
+from ..device import device_name, resolve_device
 from ..runtime.fault import Backoff
 from . import placement as pl
 from .fleet import SimOutputs
 from .mc_sweep import (MCAxes, MCOutputs, MCResult, _mc_evaluate,
                        _mc_finalize, _mc_prepare)
-from .sweep import (SweepAxes, SweepResult, _evaluate, _finalize, _prepare,
-                    device_name)
+from .sweep import SweepAxes, SweepResult, _evaluate, _finalize, _prepare
+from ..sharding.dispatch import build_kernel
 
 # Version salt folded into the run fingerprint: bump on any change to
 # the executor or the engines that affects numerics or slab layout, so
@@ -510,16 +509,6 @@ def _mask_rows(report: RunReport, *arrays: np.ndarray) -> None:
             a[idx] = np.nan
 
 
-def _build_kernel(axes, dev: torch.device, interpret: bool) -> None:
-    """Validate `axes`, then build (or load) the placement-score library
-    before any batch assembly or chunk, outside the executor's
-    isolation: a missing `nvcc` or a compile error raises here instead
-    of quarantining every configuration as a crash."""
-    axes.validate()
-    if dev.type == "cuda" and not interpret:
-        _SCORE_LIBRARY.library()
-
-
 class _Counter:
     """Sums the placement steps of every range evaluated in this process
     (a resumed chunk adds 0; bisection and retries add theirs)."""
@@ -606,7 +595,7 @@ def resilient_sweep(axes: SweepAxes, chunk_size: int | None = None,
             `runtime.fault.Backoff()`).
     """
     dev = resolve_device(device)
-    _build_kernel(axes, dev, interpret)
+    build_kernel(axes, [dev], interpret)
     prep = _prepare(axes, n_halls_max, traces, dev, legacy_pod_cond)
     knobs = dict(harvest=harvest, mature_months=mature_months,
                  exact_quantiles=exact_quantiles,
@@ -661,7 +650,7 @@ def resilient_mc_sweep(axes: MCAxes, chunk_size: int | None = None,
     batch's).  The slabs hold `mc_sweep`'s six outputs and the trials'
     registries (`rows_a`, `counts_a`, `rows_b`, `counts_b`)."""
     dev = resolve_device(device)
-    _build_kernel(axes, dev, interpret)
+    build_kernel(axes, [dev], interpret)
     T = int(n_trials)
     args, mode = _mc_prepare(axes, n_trials, n_events, year, scenario,
                              gpu_power_share, pod_racks, quantum_racks,

@@ -13,8 +13,9 @@ windows, or the per-event cond with ``legacy_pod_cond=True``):
     res.p90_stranding[i, -1], res.effective_dpm[i], res.result(i) ...
 
 `resilience.resilient_sweep` runs the same batch in checkpointed,
-fault-isolated chunks.  `sharded_sweep` (configurations split over
-several cards) waits for ROADMAP queue 1, item 9.
+fault-isolated chunks.  `sharded_sweep` streams it in chunks, each cut
+into slabs over a device list (several cards, or one card more than
+once), every row bitwise `sweep`'s.
 """
 from __future__ import annotations
 
@@ -33,7 +34,8 @@ from .fleet import (FleetResult, FleetTrace, _auto_halls, _event_windows,
                     simulate_lifecycle)
 from .hierarchy import DesignSpec, SweepValidationError, build_topology
 from .placement import DEFAULT_POLICY, POLICY_NAMES
-from ..device import resolve_device
+from ..device import device_name, resolve_device
+from ..sharding import axes as shax, dispatch
 
 
 def _broadcast(seq, B, name):
@@ -247,17 +249,23 @@ def _prepare(axes: SweepAxes, n_halls_max: int,
 
 def _evaluate(prep, lo: int, hi: int, *, harvest: bool, mature_months: int,
               exact_quantiles: bool = True, quantile_bins: int | None = None,
-              interpret: bool = False):
+              interpret: bool = False, device=None):
     """`fleet.simulate_lifecycle` over configurations ``[lo, hi)`` of a
     prepared batch: the topology, traces, windows, policies, hall caps,
     event counts and seeds sliced on axis 0, the padded shapes and the
     placement mode the whole batch's.  `sweep` runs ``[0, B)``; the
     resilient executor (`resilience.resilient_sweep`) any chunk of it,
-    with the same bits in every row."""
+    and `sharded_sweep` any slab, with the same bits in every row.
+    `device` moves the slab's topology and policies there first (default:
+    they stay where `_prepare` staged them)."""
+    def take(x):
+        x = x[lo:hi]
+        return x if device is None else x.to(device)
+
     return simulate_lifecycle(
-        type(prep.jt)(*(x[lo:hi] for x in prep.jt)),
+        type(prep.jt)(*(take(x) for x in prep.jt)),
         type(prep.ft)(*(x[lo:hi] for x in prep.ft)),
-        *(w[lo:hi] for w in prep.windows), prep.policy[lo:hi],
+        *(w[lo:hi] for w in prep.windows), take(prep.policy),
         prep.h_caps[lo:hi], prep.n_real[lo:hi],
         harvest=harvest, mature_months=mature_months,
         seeds=prep.seeds[lo:hi], with_pods=prep.with_pods,
@@ -267,9 +275,10 @@ def _evaluate(prep, lo: int, hi: int, *, harvest: bool, mature_months: int,
         interpret=interpret)
 
 
-def device_name(dev: torch.device) -> str:
-    """What a result's `device` field records."""
-    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+def _host_outputs(out):
+    """A slab's `SimOutputs` with every tensor brought to the host."""
+    return type(out)(*(v.cpu().numpy() if torch.is_tensor(v) else v
+                       for v in out))
 
 
 def serving_tpw_rows(envs: Sequence[EnvelopeSpec],
@@ -423,3 +432,81 @@ def sweep(axes: SweepAxes, harvest: bool = True, mature_months: int = 12,
     return _finalize(out, axes, prep.months, prep.topos, prep.X_pad,
                      models=models, metric_year=metric_year,
                      device=device_name(dev))
+
+
+def sharded_sweep(axes: SweepAxes, harvest: bool = True,
+                  mature_months: int = 12, n_halls_max: int = 0,
+                  traces: Sequence[Trace] | None = None, devices=None,
+                  models=None, metric_year: int | None = None,
+                  legacy_pod_cond: bool = False, interpret: bool = False,
+                  exact_quantiles: bool = True,
+                  quantile_bins: int | None = None,
+                  mesh_shape: tuple[int, int] | None = None,
+                  chunk_size: int | None = None) -> SweepResult:
+    """`sweep`, with the configuration batch streamed in chunks and each
+    chunk split over a device mesh.
+
+    The batch is prepared once on the host (`_prepare`), so the whole
+    batch's padded shapes hold for every slab and every row is bitwise
+    `sweep`'s.  It is cut into chunks of `chunk_size` configurations
+    (rounded up to a multiple of the device count; default: the whole
+    batch), each chunk into slabs over the (config × trial) mesh of
+    `sharding.axes.sweep_mesh` (the flat configuration axis
+    product-sharded over both mesh axes, so any ``(dc, dt)`` with
+    ``dc·dt = D`` gives the same slabs on the same devices).  Each slab
+    moves to its device, runs through `_evaluate` (the slabs in turn on
+    the calling thread: `sharding.dispatch.run_slabs`) and comes back to
+    the host; then the outputs are joined and `_finalize`d once.  Device
+    memory holds one chunk's slabs and their lifecycle state, flat in the
+    grid's size: this is how `giant_grid` sweeps 10⁴ configurations.
+    `event_steps` and `pod_steps` sum over the slabs (each slab runs the
+    steps one of its configurations is live in), so they still count the
+    kernel's launches.
+
+    `repro` pads a remainder grid with replicas of configuration 0 (a
+    static-shape need of its compiled program) and drops them; the port
+    has no such need and runs exactly ``B`` configurations.  With one
+    device and no `chunk_size`, or one configuration, this is `sweep`.
+    An error in any slab propagates; nothing falls back to the CPU.
+
+    Args: as `sweep`, plus
+        devices: the device list (default: every visible card; it may
+            name a device more than once, e.g. ``["cpu"] * 4``).
+        mesh_shape: (config, trial) mesh extents; must multiply out to
+            the device count (default ``(D, 1)``).
+        chunk_size: configurations per chunk (default: the whole batch).
+    """
+    devs = shax.local_devices(devices)
+    if (len(devs) <= 1 and chunk_size is None) or len(axes) == 1:
+        return sweep(axes, harvest=harvest, mature_months=mature_months,
+                     n_halls_max=n_halls_max, traces=traces,
+                     legacy_pod_cond=legacy_pod_cond, models=models,
+                     metric_year=metric_year, device=devs[0],
+                     interpret=interpret, exact_quantiles=exact_quantiles,
+                     quantile_bins=quantile_bins)
+    mesh = shax.sweep_mesh(devs, mesh_shape)
+    dispatch.build_kernel(axes, devs, interpret)
+    prep = _prepare(axes, n_halls_max, traces, torch.device("cpu"),
+                    legacy_pod_cond)
+    B, D = len(axes), len(devs)
+    C = B if chunk_size is None else max(-(-int(chunk_size) // D) * D, D)
+    knobs = dict(harvest=harvest, mature_months=mature_months,
+                 exact_quantiles=exact_quantiles,
+                 quantile_bins=quantile_bins, interpret=interpret)
+
+    def slab(dev, lo, hi):
+        return lambda: _host_outputs(_evaluate(prep, lo, hi, device=dev,
+                                               **knobs))
+
+    outs = []
+    for lo in range(0, B, C):
+        slabs = shax.batch_slabs(mesh, lo, min(lo + C, B))
+        outs += dispatch.run_slabs([(s[0], slab(*s)) for s in slabs
+                                    if s[1] < s[2]])
+    out = type(outs[0])(
+        *(np.concatenate(xs) for xs in zip(*(o[:-2] for o in outs))),
+        event_steps=sum(o.event_steps for o in outs),
+        pod_steps=sum(o.pod_steps for o in outs))
+    return _finalize(out, axes, prep.months, prep.topos, prep.X_pad,
+                     models=models, metric_year=metric_year,
+                     device=dispatch.devices_name(devs))

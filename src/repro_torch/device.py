@@ -15,3 +15,8 @@ def resolve_device(device) -> torch.device:
             f"device {str(device)!r} requested but torch.cuda.is_available() "
             "is False; pass device='cpu' to run on the CPU")
     return dev
+
+
+def device_name(dev: torch.device) -> str:
+    """What a result's `device` field records."""
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"

@@ -15,17 +15,20 @@ wrapper `ops.score_rows`).  The source is `csrc/placement_score.cu`:
   feasible rows.
 
 The library is compiled with `nvcc` at first use (see `..nvcc`) and
-loaded with `ctypes`.  `placement_score.launches` counts launches.
+loaded with `ctypes`.  `placement_score.launches` counts launches, under
+a lock, so that launches from several host threads count exactly.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
 from ..nvcc import KernelLibrary
 
 _MAX_CONFIGS = 65535          # grid.y limit
+_COUNT_LOCK = threading.Lock()
 
 
 def _bind(lib):
@@ -96,7 +99,8 @@ def placement_score(row_feeds, row_nfeeds, row_cap, row_load, lineup_ha,
     if err != 0:
         raise RuntimeError(f"placement_score: launch failed with CUDA "
                            f"error {err}")
-    placement_score.launches += 1
+    with _COUNT_LOCK:
+        placement_score.launches += 1
     return feas, score
 
 

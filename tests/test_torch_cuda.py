@@ -624,3 +624,87 @@ def test_resilient_mc_sweep_chunks_bitwise_on_the_card(cuda):
               "rows_b", "counts_b"):
         a, b = getattr(res, f), getattr(one_shot, f)
         assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), f
+
+
+def test_sharded_sweep_on_two_slabs_of_one_card_equals_the_cpu(cuda):
+    """`sharded_sweep` over ``["cuda:0"] * 2`` (chunks of 3) against the
+    CPU's one-shot `sweep`: every field bitwise, one launch per placement
+    step of every slab; `sharded_mc_sweep` on a 1 × 2 mesh against the
+    CPU's `mc_sweep`."""
+    from repro_torch.core.mc_sweep import sharded_mc_sweep
+    from repro_torch.core.sweep import sharded_sweep
+    envs = [arrivals.EnvelopeSpec(demand_scale=0.004, gpu_scenario=sc,
+                                  end_year=2028) for sc in ("med", "high")]
+    axes = SweepAxes.product(designs=[hierarchy.get_design("4N/3"),
+                                      hierarchy.get_design("3+1")],
+                             envs=envs, policies=(3, 2), seeds=(0, 1))
+    on_cpu = sweep(axes, device="cpu")
+    before = kernel.placement_score.launches
+    res = sharded_sweep(axes, devices=["cuda:0"] * 2, chunk_size=3)
+    assert kernel.placement_score.launches - before == res.event_steps > 0
+    for f in RESILIENT_FIELDS:
+        a, b = np.asarray(getattr(res, f)), np.asarray(getattr(on_cpu, f))
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), f
+    mc_axes = MCAxes.zip(designs=[hierarchy.get_design(n)
+                                  for n in ("4N/3", "3+1", "10N/8")],
+                         seeds=[11, 12, 13])
+    kw = dict(n_trials=3, n_events=80, year=2030, scenario="high")
+    mc_cpu = mc_sweep(mc_axes, device="cpu", **kw)
+    mc_card = sharded_mc_sweep(mc_axes, devices=["cuda:0"] * 2,
+                               mesh_shape=(1, 2), **kw)
+    for f in ("lineup_stranding", "hall_stranding", "deployed_kw",
+              "saturated", "placed_a", "placed_b", "rows_a", "counts_a",
+              "rows_b", "counts_b"):
+        a, b = getattr(mc_card, f), getattr(mc_cpu, f)
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), f
+
+
+def test_kernel_at_the_giant_grid_chunk_shape(cuda):
+    """The kernel at `giant_grid`'s chunk: 512 configurations of its
+    geometry (4N/3 and 3+1 alternating, MED/HIGH traces at scale 0.01 to
+    2028), 512 × 720 rows, bitwise its plain version."""
+    from repro_torch.core.placement import Topology
+    from repro_torch.core.sweep import _prepare
+    pool = [arrivals.EnvelopeSpec(demand_scale=0.01, gpu_scenario=sc,
+                                  end_year=2028) for sc in ("med", "high")]
+    traces = [arrivals.generate_fleet_trace(e, s) for e in pool
+              for s in (41, 42, 43, 44)]
+    n = 512
+    axes = SweepAxes.zip(
+        designs=[hierarchy.get_design(("4N/3", "3+1")[i % 2])
+                 for i in range(n)],
+        envs=[pool[(i % 8) // 4] for i in range(n)],
+        seeds=[41 + i % 4 for i in range(n)])
+    jt = _prepare(axes, 0, [traces[i % 8] for i in range(n)], cuda).jt
+    assert tuple(jt.row_cap.shape[:2]) == (512, 720)
+    rng = np.random.default_rng(5)
+    N, R = 512, 720
+    X = jt.lineup_cap.shape[1]
+    row_load = jt.row_cap * torch.as_tensor(
+        rng.uniform(0, 1.05, (N, R, 4)), dtype=torch.float32, device=cuda)
+    tot = jt.lineup_cap * torch.as_tensor(rng.uniform(0, 1.05, (N, X)),
+                                          dtype=torch.float32, device=cuda)
+    args = dict(row_feeds=jt.row_feeds, row_nfeeds=jt.row_nfeeds,
+                row_cap=jt.row_cap, row_load=row_load.contiguous(),
+                lineup_ha=(tot * 0.5).contiguous(),
+                lineup_tot=tot.contiguous(), lineup_cap=jt.lineup_cap,
+                p_dep=torch.full((N,), 420.0, device=cuda),
+                ha_frac=jt.ha_frac,
+                is_ha=torch.as_tensor(rng.random(N) < 0.7, device=cuda),
+                is_block=jt.is_block)
+    feas_k, score_k = ops.score_rows(**args)
+    feas_p, score_p = ops.score_rows(**args, interpret=True)
+    assert feas_k.any() and torch.equal(feas_k, feas_p)
+    assert torch.equal(score_k, score_p)
+
+
+def test_restore_without_a_device_lands_on_the_card(cuda, tmp_path):
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    ckpt = Checkpointer(str(tmp_path))
+    state = {"a": torch.arange(4.0), "b": np.arange(3, dtype=np.int32)}
+    ckpt.save(1, state, blocking=True)
+    out, _ = ckpt.restore(state)
+    assert out["a"].device.type == out["b"].device.type == "cuda"
+    assert out["a"].cpu().tolist() == [0.0, 1.0, 2.0, 3.0]
+    out, _ = ckpt.restore(state, shardings={"a": "cuda:0", "b": "cpu"})
+    assert (out["a"].device.type, out["b"].device.type) == ("cuda", "cpu")

@@ -235,6 +235,7 @@ def test_pod_payoff_study_through_the_sweep_fills_the_cache(monkeypatch):
     def no_sweep(*a, **k):
         raise AssertionError("the cache should have served every pod size")
     monkeypatch.setattr(t_pay, "sweep", no_sweep)
+    monkeypatch.setattr(t_pay, "sharded_sweep", no_sweep)
     again = t_pay.pod_payoff_study(
         t_hier.get_design("10N/8"), [t_tp.MODELS[m] for m in models],
         pod_sizes=(1, 3), env=TEnv(**kw), fleet_cache=cache, device="cpu")

@@ -7,6 +7,7 @@ import json
 import os
 import time
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -41,7 +42,7 @@ class TestCheckpointer:
             ckpt.save(s, {"x": torch.full((100,), float(s))})
         ckpt.wait()
         assert ckpt.all_steps() == [3, 4]
-        restored, step = ckpt.restore(state)
+        restored, step = ckpt.restore(state, device="cpu")
         assert step == 4 and float(restored["x"][0]) == 4.0
 
     def test_uncommitted_checkpoint_ignored(self, tmp_path):
@@ -55,7 +56,8 @@ class TestCheckpointer:
         ckpt = Checkpointer(str(tmp_path))
         ckpt.save(1, {"x": torch.ones(3)}, blocking=True)
         with pytest.raises(ValueError):
-            ckpt.restore({"x": torch.ones(3), "y": torch.ones(2)})
+            ckpt.restore({"x": torch.ones(3), "y": torch.ones(2)},
+                         device="cpu")
 
     def test_load_returns_host_leaves_and_meta(self, tmp_path):
         ckpt = Checkpointer(str(tmp_path))
@@ -76,7 +78,7 @@ class TestCheckpointer:
         with pytest.raises(ChecksumError):
             ckpt.load(step=1)
         with pytest.raises(ChecksumError):
-            ckpt.restore({"x": torch.arange(8.0)}, step=1)
+            ckpt.restore({"x": torch.arange(8.0)}, step=1, device="cpu")
         leaves, _ = ckpt.load(step=1, verify=False)
         assert len(leaves) == 1
 
@@ -117,6 +119,52 @@ class TestCheckpointer:
                                np.zeros(2, np.float64)], device="cpu")
         assert out[0].dtype == torch.int32 and out[1].dtype == torch.float64
         assert out[0].tolist() == [0, 1, 2]
+
+    def test_restore_defaults_to_the_card(self, tmp_path):
+        """F6: with neither `shardings` nor `device`, every leaf goes to
+        the card, as `repro`'s ``jax.device_put`` puts it on the default
+        device; without a card that raises."""
+        if torch.cuda.is_available():
+            pytest.skip("a CUDA device is present")
+        ckpt = Checkpointer(str(tmp_path))
+        ckpt.save(1, {"x": torch.ones(3)}, blocking=True)
+        with pytest.raises(RuntimeError, match=r"requested but "
+                           r"torch.cuda.is_available\(\) is False"):
+            ckpt.restore({"x": torch.ones(3)})
+
+    def test_restore_places_each_leaf_by_shardings(self, tmp_path):
+        """`shardings`, a pytree of devices matching the target, places
+        each leaf on its own device (the meta device stands in for a
+        second one here), with `repro`'s values and dtypes."""
+        state = {"a": np.arange(4, dtype=np.float32),
+                 "b": (np.arange(3, dtype=np.int32),
+                       np.full(2, 0.5, np.float32))}
+        r_ckpt.Checkpointer(str(tmp_path)).save(3, state, blocking=True)
+        ckpt = Checkpointer(str(tmp_path))
+        target = {"a": torch.zeros(4), "b": (torch.zeros(3, dtype=torch.int32),
+                                             torch.zeros(2))}
+        out, step = ckpt.restore(target, shardings={
+            "a": "meta", "b": (torch.device("cpu"), "cpu")})
+        assert step == 3
+        assert out["a"].device.type == "meta" and out["a"].shape == (4,)
+        assert [x.device.type for x in out["b"]] == ["cpu", "cpu"]
+        cpu = jax.devices("cpu")[0]
+        want, _ = r_ckpt.Checkpointer(str(tmp_path)).restore(
+            {"a": jnp.zeros(4), "b": (jnp.zeros(3, jnp.int32),
+                                      jnp.zeros(2))},
+            shardings={"a": cpu, "b": (cpu, cpu)})
+        for got, ref in zip(out["b"], want["b"]):
+            assert got.numpy().dtype == np.asarray(ref).dtype
+            assert got.numpy().tobytes() == np.asarray(ref).tobytes()
+        with pytest.raises(ValueError):
+            ckpt.restore(target, shardings={"a": "cpu", "b": ("cpu",)})
+        with pytest.raises(ValueError):
+            r_ckpt.Checkpointer(str(tmp_path)).restore(
+                {"a": jnp.zeros(4), "b": (jnp.zeros(3), jnp.zeros(2))},
+                shardings={"a": cpu, "b": (cpu,)})
+        with pytest.raises(ValueError, match="not both"):
+            ckpt.restore(target, shardings={"a": "cpu", "b": ("cpu", "cpu")},
+                         device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -220,7 +268,8 @@ def test_port_restores_a_repro_checkpoint_onto_torch(tmp_path):
     slab = slab_np()
     r_ckpt.Checkpointer(str(tmp_path)).save(1, as_repro(slab),
                                             blocking=True)
-    out, step = Checkpointer(str(tmp_path)).restore(as_port(slab))
+    out, step = Checkpointer(str(tmp_path)).restore(as_port(slab),
+                                                    device="cpu")
     assert step == 1
     for k, want in as_port(slab).items():
         assert out[k].dtype == want.dtype and torch.equal(out[k], want), k
@@ -243,7 +292,8 @@ def test_checksum_mismatch_raises_in_both(tmp_path, writer):
     with pytest.raises(ChecksumError):
         Checkpointer(str(tmp_path)).load(step=1)
     with pytest.raises(ChecksumError):
-        Checkpointer(str(tmp_path)).restore(as_port(slab), step=1)
+        Checkpointer(str(tmp_path)).restore(as_port(slab), step=1,
+                                            device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -264,7 +314,7 @@ class TestSupervisor:
         sup = Supervisor(
             step_fn=step_fn,
             save_fn=lambda s, st: ckpt.save(s, st, blocking=True),
-            restore_fn=lambda: ckpt.restore(torch.zeros(())),
+            restore_fn=lambda: ckpt.restore(torch.zeros(()), device="cpu"),
             checkpoint_every=5)
         state, step, history, restarts = sup.run(torch.zeros(()), 0, 12)
         assert restarts == 1 and step == 12

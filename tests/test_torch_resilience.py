@@ -34,6 +34,7 @@ from repro_torch.core import resilience as t_res  # noqa: E402
 from repro_torch.core import sweep as t_sweep  # noqa: E402
 from repro_torch.core.hierarchy import SweepValidationError  # noqa: E402
 from repro_torch.runtime import fault as t_fault  # noqa: E402
+from repro_torch.sharding import dispatch as t_dispatch  # noqa: E402
 
 SCALE = 0.004
 CPU = dict(device="cpu")
@@ -382,7 +383,7 @@ def test_kernel_build_failure_raises_before_any_chunk(axes8, monkeypatch):
     evaluated = []
     monkeypatch.setattr(t_res, "resolve_device",
                         lambda device: torch.device("cuda"))
-    monkeypatch.setattr(t_res._SCORE_LIBRARY, "library", no_nvcc)
+    monkeypatch.setattr(t_dispatch.SCORE_LIBRARY, "library", no_nvcc)
     monkeypatch.setattr(t_res, "_evaluate",
                         lambda *a, **k: evaluated.append(a))
     with pytest.raises(RuntimeError, match="nvcc not found"):
