@@ -90,7 +90,18 @@ read just after:
   `ServeEngine` with the same traffic; its MoE router launches
   `gating_topk` once per layer per prefill and per decode step, and a
   run with the plain router (use_flash_kernel=False) must give the same
-  tokens.
+  tokens;
+* training, with every kernel's launch count held at 0 (the reference
+  trains with its kernels off): three train steps (accum 1, accum 2, the
+  error-feedback compressor) of each smoke family in float32 on the card
+  against the CPU, remat "full" against "none" on the card, and the
+  step raising with use_flash_kernel=True; `launch.train.main` at the
+  smoke size, 6 steps then `--resume` to 9, against an uninterrupted
+  9-step run; qwen3-1.7b at full width and 2 layers, one float32 step on
+  the card against the CPU; then Qwen3-1.7B at full width and depth
+  (2,031,739,904 bf16 parameters, remat "full") through `build_trainer`,
+  20 steps of 8 x 256 tokens from `TokenPipeline` at lr 3e-3, with the
+  losses, ms per step, tokens/s, peak memory and a profiled step.
 
 Float32 matrix products run in full float32 (TF32 off).  It fails, and
 prints no result, without a CUDA device or without the port beside it.
@@ -1191,30 +1202,25 @@ def check_kernel_scenario_shape(dev):
 
 
 def study_runs(study, what):
-    """`study` (a callable returning a list of points) twice under
-    `StudySweeps`, the two held equal, then once profiled: (points, the
-    first run's `StudySweeps`, the profile's line)."""
-    runs = []
-    for _ in range(2):
-        with StudySweeps() as run:
-            pts = study()
-        runs.append((pts, run))
-    same_points(runs[0][0], runs[1][0], f"{what} repeat")
-    wall, busy, n_device, top = profile_run(study)
+    """`study` (a callable returning a list of points) once under
+    `StudySweeps`, then once profiled, the two held equal: (points, the
+    timed run's `StudySweeps`, the profile's line)."""
+    with StudySweeps() as run:
+        pts = study()
+    again = []
+    wall, busy, n_device, top = profile_run(lambda: again.append(study()))
+    same_points(pts, again[0], f"{what} repeat")
     for name, (calls, secs) in top[:5]:
         print(f"  device {secs:8.4f} s {calls:8d} calls  {name[:90]}")
-    run = runs[0][1]
-    split = "; ".join(
-        f"run {k + 1}: wall {r.wall:.3f} s = prepare {r.prepare_s:.3f} s + "
-        f"steps {r.steps_s:.3f} s ({r.steps_s / r.steps * 1e3:.3f} ms per "
-        f"step) + other {r.wall - r.prepare_s - r.steps_s:.3f} s"
-        for k, (_, r) in enumerate(runs))
     line = (f"{run.steps} placement steps = launches ({run.pod_steps} pod "
-            f"racks); {split}; repeat equal; profiled: {wall:.3f} s wall, "
-            f"device busy {busy:.3f} s, idle share {1 - busy / wall:.3f}, "
-            f"{n_device} kernels and copies ({n_device / run.steps:.1f} per "
-            f"step)")
-    return runs[0][0], run, line
+            f"racks); wall {run.wall:.3f} s = prepare {run.prepare_s:.3f} s "
+            f"+ steps {run.steps_s:.3f} s ({run.steps_s / run.steps * 1e3:.3f}"
+            f" ms per step) + other "
+            f"{run.wall - run.prepare_s - run.steps_s:.3f} s; profiled "
+            f"repeat equal: {wall:.3f} s wall, device busy {busy:.3f} s, "
+            f"idle share {1 - busy / wall:.3f}, {n_device} kernels and "
+            f"copies ({n_device / run.steps:.1f} per step)")
+    return pts, run, line
 
 
 def check_kernel_study_shapes(dev, run, what):
@@ -3409,6 +3415,392 @@ def score_main_path(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# training (no kernel: the reference trains with use_flash_kernel=False)
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCHS = ("qwen3-1.7b", "granite-moe-1b-a400m", "mamba2-2.7b")
+TRAIN_GOLDEN_OPT = dict(lr=1e-2, warmup_steps=2)
+TRAIN_GOLDEN_BATCH = (4, 32)
+# Card against CPU, float32 with TF32 off, the same start: the tolerances
+# tests/test_torch_train.py holds the port to `repro` with.  Loss rtol
+# 1e-5, lr 1e-6, grad_norm 1e-4 (1e-3 on the step through the int8
+# compressor, where an element on a rounding boundary moves by one
+# quantization step); each moment leaf within TRAIN_MOMENT_TOL of its
+# largest element; parameters, which Adam's first steps move by about
+# lr·sign(g), within 0.5·Σlr everywhere and within 1e-2·Σlr for all but
+# 0.1% of the elements.  Index: step 1 (accum 1), 2 (accum 2), 3 (the
+# error-feedback compressor).
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_LR_RTOL = 1e-6
+TRAIN_GRAD_NORM_RTOL = (1e-4, 1e-4, 1e-3)
+TRAIN_MOMENT_TOL = (1e-3, 1e-3, 2e-2)
+TRAIN_PARAM_TOL = dict(most=1e-2, share=1e-3, every=0.5)   # × Σlr
+# remat "full" against "none" on the card: the same products, so only a
+# reduction's order may move a gradient (no wrong route: one MoE token on
+# another expert moves its leaves by ~1e-2 of their largest element)
+REMAT_GRAD_TOL = 1e-5
+# the launcher's resumed losses against the uninterrupted run's: one
+# bfloat16 rounding step (2^-8, relative); printed whether bitwise
+TRAIN_RESUME_RTOL = 2.0 ** -8
+TRAIN_LAUNCH_ARGS = ["--arch", "qwen3-1.7b", "--batch", "4", "--seq", "64",
+                     "--lr", "3e-3", "--ckpt-every", "3"]
+WIDTH_LAYERS = 2
+WIDTH_TOKENS = (1, 64)
+TRAIN_MAIN = dict(batch=8, seq=256, lr=3e-3, steps=20)
+
+
+def kernel_counters():
+    """The launch counters of the four kernels."""
+    from repro_torch.kernels.flash_attention import kernel as flash_ker
+    from repro_torch.kernels.moe_gating import kernel as gating_ker
+    from repro_torch.kernels.placement_score import kernel as ker
+    from repro_torch.kernels.ssd_scan import kernel as ssd_ker
+    return {"placement_score": ker.placement_score,
+            "ssd_scan": ssd_ker.ssd_intra_chunk,
+            "flash_attention": flash_ker.flash_attention_bhsd,
+            "gating_topk": gating_ker.gating_topk}
+
+
+def moved(tree, dev):
+    """A copy of a tree of tensors on `dev`."""
+    from repro_torch.checkpoint.checkpointer import tree_flatten
+    leaves, treedef = tree_flatten(tree)
+    return treedef.unflatten([t.to(dev, copy=True) for t in leaves])
+
+
+def train_three_steps(arch, dev, start):
+    """`arch`'s smoke model from `start` (float32 CPU tensors, copied):
+    step 1 with accum 1, step 2 with accum 2, step 3 through the
+    error-feedback compressor; each step's (params, opt_state, metrics)
+    on the CPU."""
+    import torch
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.optim.compression import ef_compress_grads, ef_init
+    from repro_torch.train.step import make_train_step
+    model = build_model(get_smoke_config(arch), dev)
+    params = moved(start, dev)
+    opt = adamw.init(params)
+    box = {"r": ef_init(params)}
+
+    def compressor(grads, opt_state):
+        grads, box["r"] = ef_compress_grads(grads, box["r"])
+        return grads, opt_state
+    cfg = adamw.AdamWConfig(**TRAIN_GOLDEN_OPT)
+    pipe = TokenPipeline(PipelineConfig(*TRAIN_GOLDEN_BATCH,
+                                        model.cfg.vocab))
+    out = []
+    for step, fn in enumerate((make_train_step(model, cfg),
+                               make_train_step(model, cfg, 2),
+                               make_train_step(model, cfg,
+                                               compressor=compressor))):
+        batch = {"tokens": torch.as_tensor(pipe._batch_at(step),
+                                           device=dev)}
+        params, opt, met = fn(params, opt, batch)
+        out.append(moved((params, opt, met), "cpu"))
+    return out
+
+
+def leaf_gaps(got, want):
+    """max over leaves of max|got − want| / max|want| (CPU tensors)."""
+    from repro_torch.checkpoint.checkpointer import tree_flatten
+    return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+               for a, b in zip(tree_flatten(got)[0], tree_flatten(want)[0]))
+
+
+def param_gaps(got, want, lr_sum):
+    """(largest |got − want| / Σlr, share of elements beyond
+    TRAIN_PARAM_TOL["most"]·Σlr) over a parameter tree."""
+    import torch
+    from repro_torch.checkpoint.checkpointer import tree_flatten
+    gap = torch.cat([(a.float() - b.float()).abs().flatten() for a, b in zip(
+        tree_flatten(got)[0], tree_flatten(want)[0])]) / lr_sum
+    return float(gap.max()), float((gap > TRAIN_PARAM_TOL["most"])
+                                   .float().mean())
+
+
+def check_train_step(what, step, got, want, lr_sum):
+    """One step's (params, opt_state, metrics), card against CPU, within
+    the TRAIN_* tolerances; returns the printed gaps."""
+    (p_c, o_c, m_c), (p_h, o_h, m_h) = got, want
+    gaps = {k: abs(float(m_c[k]) - float(m_h[k])) / abs(float(m_h[k]))
+            for k in ("loss", "grad_norm", "lr")}
+    gaps["moments"] = max(leaf_gaps(o_c.mu, o_h.mu),
+                          leaf_gaps(o_c.nu, o_h.nu))
+    gaps["params"], share = param_gaps(p_c, p_h, lr_sum)
+    ok = (sorted(m_c) == sorted(m_h) and int(o_c.step) == int(o_h.step)
+          and gaps["loss"] <= TRAIN_LOSS_RTOL
+          and gaps["lr"] <= TRAIN_LR_RTOL
+          and gaps["grad_norm"] <= TRAIN_GRAD_NORM_RTOL[step]
+          and gaps["moments"] <= TRAIN_MOMENT_TOL[step]
+          and gaps["params"] <= TRAIN_PARAM_TOL["every"]
+          and share <= TRAIN_PARAM_TOL["share"])
+    line = (f"loss {gaps['loss']:.2e}, grad_norm {gaps['grad_norm']:.2e}, "
+            f"lr {gaps['lr']:.1e}, moments {gaps['moments']:.2e} of the "
+            f"leaf's largest, params {gaps['params']:.2e} x sum(lr) "
+            f"({share:.1e} beyond {TRAIN_PARAM_TOL['most']})")
+    if not ok:
+        raise AssertionError(f"{what}, step {step + 1}: card against CPU "
+                             f"beyond the tolerances: {line}")
+    return line
+
+
+def remat_grads(arch, dev, remat, params, tokens):
+    """The gradients of one loss under `remat` (CPU copies)."""
+    import dataclasses
+    import torch
+    from repro_torch.checkpoint.checkpointer import tree_flatten
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models.api import build_model
+    cfg = dataclasses.replace(get_smoke_config(arch), remat=remat)
+    flat, treedef = tree_flatten(params)
+    leaves = [p.detach().clone().requires_grad_() for p in flat]
+    loss, _ = build_model(cfg, dev).loss(treedef.unflatten(leaves),
+                                         {"tokens": tokens})
+    return [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+
+
+def train_golden(dev):
+    """The three smoke families' three steps on the card against the CPU;
+    remat "full" against "none" on the card (dense, MoE); the step with
+    use_flash_kernel=True raises on the card."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+    for arch in TRAIN_ARCHS:
+        start = build_model(get_smoke_config(arch), "cpu").init(
+            torch.Generator().manual_seed(0), torch.float32)
+        card = train_three_steps(arch, dev, start)
+        host = train_three_steps(arch, "cpu", start)
+        lr_sum = 0.0
+        for step, (got, want) in enumerate(zip(card, host)):
+            lr_sum += float(want[2]["lr"])
+            line = check_train_step(arch, step, got, want, lr_sum)
+            print(f"train golden {arch} step {step + 1} "
+                  f"({('accum 1', 'accum 2', 'EF compressor')[step]}): "
+                  f"loss {float(got[2]['loss']):.6f}; gaps card vs CPU: "
+                  f"{line}")
+    for arch in TRAIN_ARCHS[:2]:
+        cfg = get_smoke_config(arch)
+        params = moved(build_model(cfg, "cpu").init(
+            torch.Generator().manual_seed(0), torch.float32), dev)
+        tokens = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab, (4, 33)), dtype=torch.int32, device=dev)
+        none = remat_grads(arch, dev, "none", params, tokens)
+        full = remat_grads(arch, dev, "full", params, tokens)
+        gap = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                   1e-30)
+                  for a, b in zip(full, none))
+        same = all(torch.equal(a, b) for a, b in zip(full, none))
+        print(f"train golden {arch}: remat full against none on the card, "
+              f"largest gradient gap {gap:.3e} of the leaf's largest "
+              f"({'bitwise' if same else 'not bitwise'}; tolerance "
+              f"{REMAT_GRAD_TOL})")
+        if gap > REMAT_GRAD_TOL:
+            raise AssertionError(f"train golden {arch}: remat changed the "
+                                 f"gradients by {gap}")
+    for arch in TRAIN_ARCHS:
+        cfg = dataclasses.replace(get_smoke_config(arch),
+                                  use_flash_kernel=True)
+        model = build_model(cfg, dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(0),
+                            torch.float32)
+        step = make_train_step(model, adamw.AdamWConfig())
+        try:
+            step(params, adamw.init(params),
+                 {"tokens": torch.zeros(2, 16, dtype=torch.int32,
+                                        device=dev)})
+        except RuntimeError as exc:
+            if "has no backward" not in str(exc):
+                raise
+        else:
+            raise AssertionError(f"train golden {arch}: the step with "
+                                 "use_flash_kernel=True did not raise")
+    print("train golden: the step with use_flash_kernel=True raises on the "
+          "card for all three families")
+
+
+def train_launcher_path(dev):
+    """`launch.train.main` on the card at the smoke size: 6 steps, then
+    `--resume` to 9, against an uninterrupted 9-step run."""
+    import numpy as np
+    from repro_torch.launch import train as train_launch
+    cut, full = scratch_dir(), scratch_dir()
+    first = train_launch.main(TRAIN_LAUNCH_ARGS + ["--steps", "6",
+                                                   "--ckpt-dir", cut])
+    resumed = train_launch.main(TRAIN_LAUNCH_ARGS + [
+        "--steps", "9", "--ckpt-dir", cut, "--resume"])
+    whole = train_launch.main(TRAIN_LAUNCH_ARGS + ["--steps", "9",
+                                                   "--ckpt-dir", full])
+    if len(first) != 6 or len(resumed) != 3 or len(whole) != 9:
+        raise AssertionError(f"train launcher: {len(first)}, "
+                             f"{len(resumed)}, {len(whole)} losses")
+    gap = float(np.max(np.abs(np.array(resumed) - whole[6:]) /
+                       np.abs(whole[6:])))
+    bitwise = resumed == whole[6:] and first == whole[:6]
+    print(f"train launcher: losses {[round(v, 5) for v in whole]}; resumed "
+          f"7-9 {[round(v, 5) for v in resumed]}: largest relative gap "
+          f"{gap:.3e} ({'bitwise' if bitwise else 'not bitwise'} on the "
+          f"card; tolerance {TRAIN_RESUME_RTOL:.2e})")
+    if not (gap <= TRAIN_RESUME_RTOL and all(np.isfinite(whole))):
+        raise AssertionError("train launcher: the resumed losses differ")
+
+
+def train_width_check(dev):
+    """qwen3-1.7b's config at full width and WIDTH_LAYERS layers, float32,
+    one train step on 1 x 64 tokens on the card against the CPU: loss,
+    grad_norm and the updated embed leaves."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"),
+                              n_layers=WIDTH_LAYERS)
+    t0 = time.perf_counter()
+    tokens = TokenPipeline(PipelineConfig(*WIDTH_TOKENS, cfg.vocab)) \
+        ._batch_at(0)
+    out = {}
+    for where in (dev, "cpu"):
+        model, _, step_fn = build_trainer(cfg, *WIDTH_TOKENS,
+                                          TRAIN_MAIN["lr"], device=where)
+        # drawn on the CPU either way: the same start on both devices
+        params = model.init(torch.Generator().manual_seed(0), torch.float32)
+        params, opt, met = step_fn(params, adamw.init(params), {
+            "tokens": torch.as_tensor(tokens, device=where)})
+        out[str(where)] = moved((params["embed"], met), "cpu")
+        del params, opt
+    (e_c, m_c), (e_h, m_h) = out[str(dev)], out["cpu"]
+    lr = float(m_h["lr"])
+    loss_gap = abs(float(m_c["loss"]) - float(m_h["loss"])) / \
+        float(m_h["loss"])
+    norm_gap = abs(float(m_c["grad_norm"]) - float(m_h["grad_norm"])) / \
+        float(m_h["grad_norm"])
+    every, share = param_gaps(e_c, e_h, lr)
+    print(f"train width check: {cfg.name} at d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab}, {cfg.n_layers} layers, {model.n_params():,} "
+          f"float32 parameters, one step on {WIDTH_TOKENS[0]} x "
+          f"{WIDTH_TOKENS[1] + 1} tokens: loss {float(m_c['loss']):.6f} "
+          f"(CPU {float(m_h['loss']):.6f}, gap {loss_gap:.2e}), grad_norm "
+          f"{float(m_c['grad_norm']):.6f} (gap {norm_gap:.2e}), embed "
+          f"leaves {every:.2e} x lr ({share:.1e} beyond "
+          f"{TRAIN_PARAM_TOL['most']}); {time.perf_counter() - t0:.1f} s")
+    if not (loss_gap <= TRAIN_LOSS_RTOL and
+            norm_gap <= TRAIN_GRAD_NORM_RTOL[0] and
+            every <= TRAIN_PARAM_TOL["every"] and
+            share <= TRAIN_PARAM_TOL["share"]):
+        raise AssertionError("train width check: card against CPU beyond "
+                             "the tolerances")
+
+
+def train_main_path(dev):
+    """Qwen3-1.7B at full width and depth (bf16, remat "full", its
+    config's default) through `build_trainer`, TRAIN_MAIN["steps"] steps
+    on `TokenPipeline` batches as the launcher's `one_step` builds them,
+    then one profiled step."""
+    import statistics
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.optim import adamw
+    cfg = get_config("qwen3-1.7b")
+    B, S = TRAIN_MAIN["batch"], TRAIN_MAIN["seq"]
+    model, _, step_fn = build_trainer(cfg, B, S, TRAIN_MAIN["lr"],
+                                            device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    opt = adamw.init(params)
+    torch.cuda.synchronize()
+    state_gib = (torch.cuda.memory_allocated() - base) / 2 ** 30
+    print(f"train main path: {cfg.name}, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab}, remat {cfg.remat}: "
+          f"{model.n_params():,} bf16 parameters and float32 moments, "
+          f"{state_gib:.2f} GiB, drawn in {time.perf_counter() - t0:.2f} s; "
+          f"batch {B} x {S + 1} tokens, lr {TRAIN_MAIN['lr']}")
+    pipe = TokenPipeline(PipelineConfig(B, S, cfg.vocab))
+
+    def one_step(step):
+        nonlocal params, opt
+        batch = {"tokens": torch.as_tensor(pipe._batch_at(step),
+                                           device=dev)}
+        params, opt, metrics = step_fn(params, opt, batch)
+        return metrics
+
+    walls, history = [], []
+    t_all = time.perf_counter()
+    for step in range(TRAIN_MAIN["steps"]):
+        t0 = time.perf_counter()
+        history.append(one_step(step))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    dt = time.perf_counter() - t_all
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    losses = [float(h["loss"]) for h in history]
+    norms = [float(h["grad_norm"]) for h in history]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one_step(TRAIN_MAIN["steps"])
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    busy, by_name = device_activity(prof)
+    tokens = B * S * len(history)
+    print(f"train main path: losses {losses[0]:.4f} .. {losses[-1]:.4f} "
+          f"({[round(v, 4) for v in losses]}); grad_norm {norms[0]:.4f} .. "
+          f"{norms[-1]:.4f}")
+    print(f"train main path: step 1 {walls[0] * 1e3:.1f} ms, steps 2-"
+          f"{len(walls)} median {statistics.median(walls[1:]) * 1e3:.1f} ms "
+          f"(min {min(walls[1:]) * 1e3:.1f}, max {max(walls[1:]) * 1e3:.1f});"
+          f" {tokens / dt:,.0f} tokens/s (batch x seq x steps / wall, as the "
+          f"launcher counts); peak allocated {peak:.2f} GiB above the "
+          f"{base / 2 ** 30:.2f} GiB held before it")
+    for name, (calls, secs) in sorted(by_name.items(),
+                                      key=lambda kv: -kv[1][1])[:10]:
+        print(f"  device {secs:8.4f} s {calls:8d} calls  {name[:90]}")
+    print(f"train main path profiled step: {prof_wall * 1e3:.1f} ms wall, "
+          f"device busy {busy * 1e3:.1f} ms, idle share "
+          f"{1 - busy / prof_wall:.3f}, "
+          f"{sum(c for c, _ in by_name.values())} kernels and copies")
+    if not (np.all(np.isfinite(losses)) and np.all(np.isfinite(norms))
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"train main path: losses {losses}, grad_norm "
+                             f"{norms}")
+    del params, opt
+    torch.cuda.empty_cache()
+
+
+def training_section(dev, timings):
+    """The training phases, with every kernel's launch count held at 0."""
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    for name, phase in (("train golden", train_golden),
+                        ("train launcher", train_launcher_path),
+                        ("train width check", train_width_check),
+                        ("train main path", train_main_path)):
+        t0 = time.perf_counter()
+        phase(dev)
+        timings[name] = time.perf_counter() - t0
+    launched = {k: c.launches for k, c in counters.items()}
+    print(f"training: kernel launches {launched} (all 0: the reference "
+          f"trains with its kernels off)")
+    if any(launched.values()):
+        raise AssertionError(f"training launched kernels: {launched}")
+
+
 def main():
     start = time.perf_counter()
     try:
@@ -3600,6 +3992,8 @@ def main():
     t0 = time.perf_counter()
     gating_launches = moe_serve_main_path(dev)
     timings["moe serving main path"] = time.perf_counter() - t0
+
+    training_section(dev, timings)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in timings.items())
           + f"; script {time.perf_counter() - start:.1f}")

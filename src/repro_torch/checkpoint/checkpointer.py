@@ -14,9 +14,11 @@ format, so a checkpoint written by either package loads in the other:
   sha256.  Leaves whose dtype numpy cannot hold (bfloat16, float8) are
   stored as raw ``uint8`` bytes under their dtype's name and viewed back
   through `torch` on load.
-* **Async save** — the device→host snapshot (``.detach().cpu()``) is
-  taken synchronously, serialization runs on a background thread; `wait()`
-  joins before the next save or shutdown.
+* **Async save** — the host snapshot is taken synchronously, a copy of
+  every leaf (a CPU tensor or numpy array too: `repro`'s arrays are
+  immutable, the port's tensors are not, and a training step updates
+  them in place while the snapshot is written); serialization runs on a
+  background thread; `wait()` joins before the next save or shutdown.
 
 The pytree flatten is the port's own (dict, list, tuple, NamedTuple and
 None nodes; anything else is a leaf), in `jax.tree.flatten`'s order —
@@ -156,14 +158,16 @@ def tree_flatten(tree) -> Tuple[List[Any], TreeDef]:
 # ---------------------------------------------------------------------------
 
 def _to_host(x) -> Tuple[np.ndarray, str]:
-    """(the array stored in the npz, its manifest dtype string)."""
+    """(a host copy of `x` as the array stored in the npz, its manifest
+    dtype string)."""
     if torch.is_tensor(x):
-        t = x.detach().cpu().contiguous()
+        t = x.detach().to("cpu", copy=True,
+                          memory_format=torch.contiguous_format)
         name = str(t.dtype).removeprefix("torch.")
         if name in _RAW_DTYPES:
             return t.view(torch.uint8).numpy(), name
         return t.numpy(), name
-    a = np.asarray(x)
+    a = np.array(x)
     if str(a.dtype) in _RAW_DTYPES:         # an ml_dtypes array
         return a.view(np.uint8), str(a.dtype)
     return a, str(a.dtype)
@@ -337,8 +341,9 @@ class Checkpointer:
         out = []
         for i, (ref, dev) in enumerate(zip(leaves, devs)):
             x = _decode(data[f"leaf_{i}"], meta["dtypes"][i])
+            # np.ascontiguousarray gives a 0-d leaf one axis: keep its shape
             t = x if torch.is_tensor(x) else torch.from_numpy(
-                np.ascontiguousarray(x))
+                np.ascontiguousarray(x)).reshape(x.shape)
             if hasattr(ref, "dtype"):
                 t = t.to(_as_torch_dtype(ref.dtype))
             out.append(t.to(dev))

@@ -2,7 +2,8 @@
 
 The port's counterpart of loading weights: it takes numpy arrays (the
 leaves of `repro`'s `JaxTopology`, `HallState` and `FleetTrace`, as
-`np.asarray` gives them, and a model's parameter tree) and returns the
+`np.asarray` gives them, a model's parameter tree and its optimizer
+state) and returns the
 port's tensors on a given device.  A fleet-state leaf may be one
 configuration's (the batch axis is added) or already carry the leading
 configuration axis.  Only numpy crosses over: nothing of `repro` or
@@ -18,6 +19,7 @@ import torch
 from .core.fleet import FleetTrace
 from .core.placement import HallState, Topology, check_hall_blocks
 from .models.params import Spec, leaves, unflatten
+from .optim.adamw import AdamWState
 
 # field -> (dtype, ndim of one configuration's leaf)
 _TOPOLOGY = {
@@ -123,3 +125,18 @@ def params_from_numpy(tree: Mapping, spec: Spec, device,
                              f"port's spec says {p.shape}")
         out.append((path, _tensor(a).to(device=device, dtype=dtype)))
     return unflatten(out)
+
+
+def adamw_state_from_numpy(state, spec: Spec, device) -> AdamWState:
+    """`repro`'s `AdamWState(step, mu, nu)` with numpy leaves (as
+    `jax.tree.map(np.asarray, …)` gives it) → the port's: the step an
+    int32 scalar, the moments float32 trees of `spec`'s leaves."""
+    step, mu, nu = state
+    step = np.asarray(step)
+    if step.shape != () or step.dtype.kind not in "iu":
+        raise ValueError(f"the step is {step.dtype} of shape {step.shape}, "
+                         "expected an integer scalar")
+    return AdamWState(
+        torch.tensor(int(step), dtype=torch.int32, device=device),
+        params_from_numpy(mu, spec, device, torch.float32),
+        params_from_numpy(nu, spec, device, torch.float32))

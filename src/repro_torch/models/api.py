@@ -3,7 +3,7 @@ families.
 
 `Model(cfg, device)` exposes
     spec / init / n_params
-    loss(params, batch) → (loss, metrics)                 — scoring objective
+    loss(params, batch) → (loss, metrics)                 — training objective
     prefill(params, batch, max_seq) → (logits, caches)   — prompt phase
     decode_step(params, token, pos, caches)               — decode phase
     init_caches
@@ -35,12 +35,14 @@ class Model:
     def n_params(self) -> int:
         return n_params(self.spec)
 
-    # --- scoring ---
+    # --- training and scoring ---
     def loss(self, params, batch):
-        """The training objective's forward (`lm.lm_loss`).  With
-        `use_flash_kernel` it runs the flash kernel (dense attention) or
-        the gating kernel (the MoE router), neither of which has a
-        gradient: call it under `torch.no_grad()`."""
+        """The training objective (`lm.lm_loss`).  With
+        `use_flash_kernel` off (the default, as the reference trains) it
+        has a gradient, and `cfg.remat` applies under grad mode.  With
+        the flag on, the dense attention, the SSD scan and the MoE router
+        run their kernels, none of which has a gradient: their ops raise
+        under grad mode, so score under `torch.no_grad()`."""
         return lm.lm_loss(self.cfg, params, batch, interpret=self.interpret)
 
     # --- serving ---

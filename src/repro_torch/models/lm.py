@@ -2,21 +2,27 @@
 families; port of `repro.models.lm`.
 
 One parameter spec and the entry points `forward_hidden`,
-`forward_train` and `lm_loss` (the scoring forward), `prefill` and
+`forward_train` and `lm_loss` (the training objective, which scoring
+runs without grad), `prefill` and
 `decode_step` (serving).  The layers' parameters and caches are stacked
 along a leading layer axis, as in the reference, and a Python loop walks
 that axis in place of `lax.scan`; the MoE layers' aux losses are summed
 over it, as the scan's carry does.  Prefill and decode drop the aux loss,
-as the reference does, so there the router does not compute it.  The
-port has no training step yet, so `remat` is not read.  The hybrid, VLM
-and audio families raise `NotImplementedError` until their layers are
-ported (ROADMAP.md, queue 1, item 11).
+as the reference does, so there the router does not compute it.  Under
+grad mode `forward_hidden` wraps each layer in `_remat` (the reference
+wraps its scan body): `cfg.remat` "full" recomputes the layer in the
+backward pass, "dots" saves only the matrix products without batch
+dimensions, "none" saves everything; scoring and serving run no remat.
+The hybrid, VLM and audio families raise `NotImplementedError` until
+their layers are ported (ROADMAP.md, queue 1, item 11).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ArchConfig
 from . import attention as attn
@@ -99,6 +105,18 @@ def _layer(tree, i: int):
             for k, v in tree.items()}
 
 
+def _unstack(tree):
+    """Per-layer views of a stacked tree, one `unbind` per leaf.  Under
+    autograd its backward stacks the layers' gradients once, where
+    indexing each layer (`_layer`) would give every layer's gradient the
+    whole stacked shape, zero-filled, and sum them: L times the traffic
+    of the stacked leaves."""
+    per_leaf = {k: _unstack(v) if isinstance(v, dict) else v.unbind(0)
+                for k, v in tree.items()}
+    n = len(next(iter(per_leaf.values())))
+    return [{k: v[i] for k, v in per_leaf.items()} for i in range(n)]
+
+
 def _positions(x):
     B, S = x.shape[:2]
     return torch.arange(S, device=x.device)[None].expand(B, S)
@@ -139,17 +157,52 @@ def init_caches(cfg: ArchConfig, batch: int, max_seq: int,
           for t in one))
 
 
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy, the counterpart of
+    `jax.checkpoint_policies.dots_with_no_batch_dims_saveable`: save the
+    outputs of matrix products without batch dimensions, recompute the
+    rest.  `x @ w` lowers to `aten.mm`; an einsum without batch axes
+    ("bsd,dhk->bshk") to `aten.bmm` over a batch of one, while the
+    attention and expert einsums are `bmm`s over heads, experts or token
+    groups (a batch axis of size one, e.g. one MoE group, counts as
+    none here)."""
+    if op is torch.ops.aten.mm.default or (
+            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ArchConfig, fn):
+    """`fn` wrapped per `cfg.remat`; unchanged without grad mode."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _dots_saveable))
+    raise ValueError(f"unknown remat {cfg.remat!r}: none, full or dots")
+
+
 def forward_hidden(cfg: ArchConfig, params, tokens, interpret: bool = False):
     """tokens [B,S] (inputs) → (hidden [B,S,d], aux_loss: the MoE layers'
     sum, 0 without them)."""
     ((mixer, ffn),) = _layer_kinds(cfg)
     x = embed_tokens(params["embed"], tokens)
     positions = _positions(x)
-    total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        x, _, aux = _apply_block(cfg, mixer, ffn, _layer(params["blocks"], i),
-                                 x, positions=positions, mode="train",
+
+    def layer(x, p_l):
+        x, _, aux = _apply_block(cfg, mixer, ffn, p_l, x,
+                                 positions=positions, mode="train",
                                  interpret=interpret)
+        return x, aux
+
+    layer = _remat(cfg, layer)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p_l in _unstack(params["blocks"]):
+        x, aux = layer(x, p_l)
         if aux is not None:
             total = total + aux
     return x, total
@@ -166,7 +219,7 @@ def lm_loss(cfg: ArchConfig, params, batch,
     """Causal LM loss via chunked CE (never materializes full logits).
     batch: {"tokens": [B,S]}.  Inputs keep the full length S; the last
     position's label is −1 (masked), as in the reference."""
-    tokens = batch["tokens"]
+    tokens = batch["tokens"].long()
     labels = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -1)],
                        dim=1)
     hidden, aux = forward_hidden(cfg, params, tokens, interpret)

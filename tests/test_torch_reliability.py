@@ -5,6 +5,7 @@ format shared by both packages: a checkpoint written by either loads in
 the other with the same bytes, dtypes and manifest fingerprint."""
 import json
 import os
+import threading
 import time
 
 import jax
@@ -44,6 +45,50 @@ class TestCheckpointer:
         assert ckpt.all_steps() == [3, 4]
         restored, step = ckpt.restore(state, device="cpu")
         assert step == 4 and float(restored["x"][0]) == 4.0
+
+    def test_save_snapshots_cpu_leaves_before_returning(self, tmp_path,
+                                                        monkeypatch):
+        """An async save holds the values at the call, though the caller
+        updates its CPU tensors in place right after (as the training
+        step does); the write is held back until then."""
+        release = threading.Event()
+        savez = np.savez
+
+        def held_savez(*args, **kwargs):
+            release.wait(timeout=30)
+            return savez(*args, **kwargs)
+
+        monkeypatch.setattr(t_ckpt.np, "savez", held_savez)
+        ckpt = Checkpointer(str(tmp_path))
+        w = torch.arange(6.0).reshape(2, 3)
+        state = {"w": w, "wt": w.t(), "b": w.to(torch.bfloat16),
+                 "n": np.ones(3)}
+        ckpt.save(1, state)
+        for leaf in (w, state["b"], state["n"]):
+            leaf += 1
+        release.set()
+        ckpt.wait()
+        restored, _ = ckpt.restore(state, device="cpu")
+        want = torch.arange(6.0).reshape(2, 3)
+        assert torch.equal(restored["w"], want)
+        assert torch.equal(restored["wt"], want.t())
+        assert torch.equal(restored["b"], want.to(torch.bfloat16))
+        assert torch.equal(restored["n"], torch.ones(3, dtype=torch.float64))
+
+    def test_restore_keeps_scalar_leaves_scalar(self, tmp_path):
+        """A 0-d leaf (the optimizer's step) restores with shape (), as
+        `repro`'s `device_put` of the stored array does."""
+        ckpt = Checkpointer(str(tmp_path))
+        state = {"step": torch.tensor(6, dtype=torch.int32),
+                 "x": torch.tensor(1.5)}
+        ckpt.save(6, state, blocking=True)
+        restored, _ = ckpt.restore(state, device="cpu")
+        assert restored["step"].shape == () and int(restored["step"]) == 6
+        assert restored["step"].dtype == torch.int32
+        assert restored["x"].shape == () and float(restored["x"]) == 1.5
+        r_restored, _ = r_ckpt.Checkpointer(str(tmp_path)).restore(
+            {"step": jnp.zeros((), jnp.int32), "x": jnp.zeros(())})
+        assert r_restored["step"].shape == restored["step"].shape
 
     def test_uncommitted_checkpoint_ignored(self, tmp_path):
         ckpt = Checkpointer(str(tmp_path))
