@@ -3,7 +3,7 @@
 The port's counterpart of loading weights: it takes numpy arrays (the
 leaves of `repro`'s `JaxTopology`, `HallState` and `FleetTrace`, as
 `np.asarray` gives them, a model's parameter tree and its optimizer
-state) and returns the
+state, serving caches) and returns the
 port's tensors on a given device.  A fleet-state leaf may be one
 configuration's (the batch axis is added) or already carry the leading
 configuration axis.  Only numpy crosses over: nothing of `repro` or
@@ -125,6 +125,33 @@ def params_from_numpy(tree: Mapping, spec: Spec, device,
                              f"port's spec says {p.shape}")
         out.append((path, _tensor(a).to(device=device, dtype=dtype)))
     return unflatten(out)
+
+
+def caches_from_numpy(tree, like):
+    """`repro`'s serving caches with numpy leaves (as `jax.tree.map(
+    np.asarray, …)` gives them: a `KVCache` or `SSMCache`, or the hybrid's
+    dict of them by sub-layer) → the port's, shaped as the cache tree
+    `like` (`Model.init_caches`): the same dict keys and cache types, each
+    leaf of `like`'s shape and type (bfloat16 carried over by its bits)
+    on `like`'s device."""
+    if isinstance(like, Mapping):
+        got = sorted(tree) if isinstance(tree, Mapping) else \
+            type(tree).__name__
+        if got != sorted(like):
+            raise KeyError(f"cache sub-layers {got} are not the port's "
+                           f"{sorted(like)}")
+        return {k: caches_from_numpy(tree[k], v) for k, v in like.items()}
+    if len(tree) != len(like):
+        raise ValueError(f"{type(like).__name__} has {len(like)} fields, "
+                         f"the tree {len(tree)}")
+    out = []
+    for name, a, t in zip(like._fields, tree, like):
+        a = np.asarray(a)
+        if a.shape != tuple(t.shape):
+            raise ValueError(f"cache `{name}` has shape {a.shape}, the "
+                             f"port's {tuple(t.shape)}")
+        out.append(_tensor(a).to(device=t.device, dtype=t.dtype))
+    return type(like)(*out)
 
 
 def adamw_state_from_numpy(state, spec: Spec, device) -> AdamWState:

@@ -6,8 +6,9 @@ supervised loop (straggler detection + restart-on-failure).
 
 The flags are the reference launcher's (`repro.launch.train`) plus
 `--device` (default ``cuda``, which raises without a card).  `--arch`
-takes the ported families: ``qwen3-1.7b`` (the default),
-``granite-moe-1b-a400m`` or ``mamba2-2.7b``.  Parameters are drawn in
+takes the ported architectures (`configs.base.PORTED`: the SSM, dense,
+MoE and hybrid families; ``qwen3-1.7b`` the default); ``qwen2-vl-2b``
+and ``whisper-small`` raise `NotImplementedError`.  Parameters are drawn in
 bfloat16 from a generator seeded with 0 on the device; the model trains
 with its kernels off (`use_flash_kernel=False`), as the reference
 trains.  `--resume` restores `(params, AdamWState)` from the latest

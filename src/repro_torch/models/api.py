@@ -1,5 +1,5 @@
-"""Model facade (port of `repro.models.api`), the SSM, dense and MoE
-families.
+"""Model facade (port of `repro.models.api`), the SSM, dense, MoE and
+hybrid families.
 
 `Model(cfg, device)` exposes
     spec / init / n_params

@@ -5,8 +5,10 @@ The default math path is plain PyTorch (`_sdpa`, or `_sdpa_blockwise`
 for long sequences).  `cfg.use_flash_kernel` switches the scoring
 forward (`attention`, causal) to `repro_torch.kernels.flash_attention`,
 the hand-written CUDA kernel on the card; prefill and decode always take
-the plain path, as in the reference.  Cross-attention and M-RoPE come
-with later model-zoo slices (ROADMAP.md, queue 1, item 11).
+the plain path, as in the reference.  Every dense, MoE and hybrid
+configuration runs through it (GQA groups of 1 to 8 query heads per K/V
+head); cross-attention (audio) and M-RoPE (VLM) come with later
+model-zoo slices (ROADMAP.md, queue 1, item 11).
 """
 from __future__ import annotations
 

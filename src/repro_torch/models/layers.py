@@ -4,6 +4,8 @@ variants (SwiGLU / squared-ReLU / GELU), the token embedding and head,
 and the chunked cross-entropy."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -36,8 +38,8 @@ def apply_rope(x, positions, theta: float = 1e6):
     return out.to(x.dtype)
 
 
-def mlp_spec(cfg: ArchConfig) -> Spec:
-    d, f = cfg.d_model, cfg.d_ff
+def mlp_spec(cfg: ArchConfig, d_ff: Optional[int] = None) -> Spec:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     if cfg.act == "swiglu":
         return {
             "wi0": ParamDef((d, f), ("embed", "mlp")),

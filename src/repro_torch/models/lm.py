@@ -1,5 +1,5 @@
-"""Decoder-only language models, the SSM (Mamba2), dense and MoE
-families; port of `repro.models.lm`.
+"""Decoder-only language models, the SSM (Mamba2), dense, MoE and hybrid
+(Jamba) families; port of `repro.models.lm`.
 
 One parameter spec and the entry points `forward_hidden`,
 `forward_train` and `lm_loss` (the training objective, which scoring
@@ -7,14 +7,20 @@ runs without grad), `prefill` and
 `decode_step` (serving).  The layers' parameters and caches are stacked
 along a leading layer axis, as in the reference, and a Python loop walks
 that axis in place of `lax.scan`; the MoE layers' aux losses are summed
-over it, as the scan's carry does.  Prefill and decode drop the aux loss,
-as the reference does, so there the router does not compute it.  Under
-grad mode `forward_hidden` wraps each layer in `_remat` (the reference
-wraps its scan body): `cfg.remat` "full" recomputes the layer in the
-backward pass, "dots" saves only the matrix products without batch
-dimensions, "none" saves everything; scoring and serving run no remat.
-The hybrid, VLM and audio families raise `NotImplementedError` until
-their layers are ported (ROADMAP.md, queue 1, item 11).
+over it, as the scan's carry does.  The hybrid family stacks one period
+of `attn_period` sub-layers (``{"sub0": block, …}``, attention at
+`attn_offset`, MoE where ``i % moe_period == 1``) over
+``n_layers // attn_period`` periods; the loop walks the periods and,
+inside each, the sub-layers, and its caches are a dict of per-sub-layer
+caches, each stacked over the periods.  Prefill and decode drop the aux
+loss, as the reference does, so there the router does not compute it.
+Under grad mode `forward_hidden` wraps each layer, or each period of the
+hybrid, in `_remat` (the reference wraps its scan body): `cfg.remat`
+"full" recomputes it in the backward pass, "dots" saves only the matrix
+products without batch dimensions, "none" saves everything; scoring and
+serving run no remat.  The VLM and audio families raise
+`NotImplementedError` until their layers are ported (ROADMAP.md, queue
+1, item 11).
 """
 from __future__ import annotations
 
@@ -34,15 +40,35 @@ from .params import ParamDef, Spec, stack_spec
 
 
 def _layer_kinds(cfg: ArchConfig):
-    """Per-layer (mixer, ffn) kinds of the stack."""
+    """Per-layer (mixer, ffn) kinds for one period (hybrid) or the whole
+    stack (homogeneous)."""
     if cfg.family == "ssm":
         return [("mamba", "none")]
+    if cfg.family == "hybrid":
+        return [("attn" if i == cfg.attn_offset else "mamba",
+                 "moe" if cfg.moe_period and i % cfg.moe_period == 1
+                 else "mlp")
+                for i in range(cfg.attn_period)]
     if cfg.family in ("dense", "moe"):
         return [("attn", "moe" if cfg.is_moe else "mlp")]
     raise NotImplementedError(
         f"the {cfg.family} family ({cfg.name}) is not ported yet: its "
         "layers come with a later model-zoo slice (ROADMAP.md, queue 1, "
         "item 11)")
+
+
+def _period(cfg: ArchConfig):
+    """[(key, mixer, ffn)] of the layers of one step of the stack: the
+    homogeneous families' one layer (key None: its parameters and caches
+    are the stack's own leaves), or the hybrid's sub-layers ``sub{i}``."""
+    kinds = _layer_kinds(cfg)
+    if len(kinds) == 1:
+        return [(None, *kinds[0])]
+    return [(f"sub{i}", m, f) for i, (m, f) in enumerate(kinds)]
+
+
+def _sub(tree, key):
+    return tree if key is None else tree[key]
 
 
 def block_spec(cfg: ArchConfig, mixer: str, ffn: str) -> Spec:
@@ -57,9 +83,14 @@ def block_spec(cfg: ArchConfig, mixer: str, ffn: str) -> Spec:
 
 
 def lm_spec(cfg: ArchConfig) -> Spec:
-    (kind,) = _layer_kinds(cfg)
+    kinds = _layer_kinds(cfg)
+    if len(kinds) == 1:
+        blocks = block_spec(cfg, *kinds[0])
+    else:
+        blocks = {f"sub{i}": block_spec(cfg, m, f)
+                  for i, (m, f) in enumerate(kinds)}
     return {"embed": embed_spec(cfg),
-            "blocks": stack_spec(block_spec(cfg, *kind), cfg.n_layers,
+            "blocks": stack_spec(blocks, cfg.n_layers // len(kinds),
                                  "layers")}
 
 
@@ -124,37 +155,49 @@ def _positions(x):
 
 def _run_stack(cfg: ArchConfig, blocks_p, x, caches, mode: str, pos=None,
                interpret: bool = False):
-    """Walk the stacked layer axis with caches; returns (x, caches).  The
-    attention layers write K/V into the stacked caches in place (each
-    layer's cache is a view of them); the SSM layers' new states are
-    stacked anew."""
-    ((mixer, ffn),) = _layer_kinds(cfg)
+    """Walk the stacked layer axis (the hybrid's periods, and each
+    period's sub-layers) with caches; returns (x, caches).  The attention
+    layers write K/V into the stacked caches in place (each layer's cache
+    is a view of them); the SSM layers' new states are stacked anew."""
+    period = _period(cfg)
     positions = _positions(x) if mode == "prefill" else None
-    news = []
-    for i in range(cfg.n_layers):
-        cache_l = type(caches)(*(t[i] for t in caches))
-        x, new, _ = _apply_block(cfg, mixer, ffn, _layer(blocks_p, i), x,
-                                 positions=positions, cache=cache_l,
-                                 mode=mode, pos=pos, interpret=interpret)
-        news.append(new)
-    if mixer == "attn":
-        return x, caches
-    return x, type(caches)(*(torch.stack(ts) for ts in zip(*news)))
+    news = {key: [] for key, _, _ in period}
+    for i in range(cfg.n_layers // len(period)):
+        p_i = _layer(blocks_p, i)
+        for key, mixer, ffn in period:
+            stacked = _sub(caches, key)
+            cache_l = type(stacked)(*(t[i] for t in stacked))
+            x, new, _ = _apply_block(cfg, mixer, ffn, _sub(p_i, key), x,
+                                     positions=positions, cache=cache_l,
+                                     mode=mode, pos=pos, interpret=interpret)
+            news[key].append(new)
+    out = {}
+    for key, mixer, _ in period:
+        stacked = _sub(caches, key)
+        out[key] = stacked if mixer == "attn" else type(stacked)(
+            *(torch.stack(ts) for ts in zip(*news[key])))
+    return x, out[None] if None in out else out
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_seq: int,
                 dtype=torch.bfloat16, device=None):
-    """Stacked per-layer caches [L, batch, …]: K/V in `dtype` (dense), or
-    the conv state in `dtype` and the SSM state in float32 (`max_seq` is
-    unused by the SSM family)."""
-    ((mixer, _),) = _layer_kinds(cfg)
-    if mixer == "attn":
-        one = attn.init_cache(cfg, batch, max_seq, dtype, device)
-    else:
-        one = ssm_lib.init_ssm_cache(cfg, batch, dtype, device)
-    return type(one)(
-        *(t[None].expand((cfg.n_layers,) + t.shape).contiguous()
-          for t in one))
+    """Stacked per-layer caches [L, batch, …]: K/V in `dtype` (attention),
+    or the conv state in `dtype` and the SSM state in float32 (`max_seq`
+    is unused by the SSM layers).  The hybrid's are a dict of its
+    sub-layers' caches, each stacked over the periods."""
+    period = _period(cfg)
+    n = cfg.n_layers // len(period)
+
+    def stacked(mixer):
+        if mixer == "attn":
+            one = attn.init_cache(cfg, batch, max_seq, dtype, device)
+        else:
+            one = ssm_lib.init_ssm_cache(cfg, batch, dtype, device)
+        return type(one)(*(t[None].expand((n,) + t.shape).contiguous()
+                           for t in one))
+
+    out = {key: stacked(mixer) for key, mixer, _ in period}
+    return out[None] if None in out else out
 
 
 def _dots_saveable(ctx, op, *args, **kwargs):
@@ -188,21 +231,26 @@ def _remat(cfg: ArchConfig, fn):
 
 def forward_hidden(cfg: ArchConfig, params, tokens, interpret: bool = False):
     """tokens [B,S] (inputs) → (hidden [B,S,d], aux_loss: the MoE layers'
-    sum, 0 without them)."""
-    ((mixer, ffn),) = _layer_kinds(cfg)
+    sum, 0 without them; the hybrid's summed over each period's
+    sub-layers, then over the periods, as the reference's scan does)."""
+    period = _period(cfg)
     x = embed_tokens(params["embed"], tokens)
     positions = _positions(x)
 
-    def layer(x, p_l):
-        x, _, aux = _apply_block(cfg, mixer, ffn, p_l, x,
-                                 positions=positions, mode="train",
-                                 interpret=interpret)
-        return x, aux
+    def layers(x, p_l):
+        total = None
+        for key, mixer, ffn in period:
+            x, _, aux = _apply_block(cfg, mixer, ffn, _sub(p_l, key), x,
+                                     positions=positions, mode="train",
+                                     interpret=interpret)
+            if aux is not None:
+                total = aux if total is None else total + aux
+        return x, total
 
-    layer = _remat(cfg, layer)
+    layers = _remat(cfg, layers)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for p_l in _unstack(params["blocks"]):
-        x, aux = layer(x, p_l)
+        x, aux = layers(x, p_l)
         if aux is not None:
             total = total + aux
     return x, total

@@ -4,7 +4,8 @@
 Requests claim a free slot and are prefilled one at a time, their
 prompts truncated or left-padded with zeros to `prompt_len`; the
 single-row caches are copied into the slot along the batch axis of the
-stacked caches.  The first token is the argmax of the prefill logits.
+stacked caches, leaf by leaf (any cache tree: a NamedTuple, or the
+hybrid's dict of them).  The first token is the argmax of the prefill logits.
 Each step then decodes every slot one token with one shared position;
 finished slots (max_new_tokens, EOS or max_seq − 1) free immediately.
 The decode step runs eagerly.
@@ -19,6 +20,25 @@ import numpy as np
 import torch
 
 from ..models.api import Model
+
+
+def _cache_pairs(full, one):
+    """(slot leaf, prefill leaf) pairs of two cache trees of one structure
+    (a cache NamedTuple, or the hybrid's dict of them), leaf by leaf, as
+    the reference's `jax.tree.map` pairs them."""
+    if isinstance(full, torch.Tensor):
+        yield full, one
+    elif isinstance(full, dict):
+        if full.keys() != one.keys():
+            raise ValueError(f"cache trees differ: {sorted(full)} and "
+                             f"{sorted(one)}")
+        for k in full:
+            yield from _cache_pairs(full[k], one[k])
+    else:
+        if len(full) != len(one):
+            raise ValueError("cache trees differ in length")
+        for a, b in zip(full, one):
+            yield from _cache_pairs(a, b)
 
 
 @dataclass
@@ -77,7 +97,7 @@ class ServeEngine:
                                                  {"tokens": tokens},
                                                  self.max_seq)
             # copy the single-row prefill caches into this slot
-            for full, one in zip(self.caches, caches1):
+            for full, one in _cache_pairs(self.caches, caches1):
                 full[:, slot] = one[:, 0].to(full.dtype)
             tok = int(torch.argmax(logits[0]))
             req.output.append(tok)

@@ -16,7 +16,7 @@ their batch into slabs with it and run each slab on its device:
 A device list may name one device more than once, which puts several
 slabs on it (``["cpu"] * 4`` on the CPU, ``["cuda:0"] * 2`` on one
 card).  The model-mesh rule sets of `repro.sharding.axes` are not here
-yet (ROADMAP queue 1, item 11).
+yet (ROADMAP queue 1, item 11b).
 """
 from __future__ import annotations
 

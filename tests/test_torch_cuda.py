@@ -794,3 +794,119 @@ def test_train_steps_on_the_card_match_the_cpu(cuda, arch):
             tree_flatten(p_c)[0], tree_flatten(p_h)[0])]) / lr_sum
         assert float(gap.max()) <= 0.5
         assert float((gap > 1e-2).float().mean()) <= 1e-3
+
+
+# ---- the model zoo: qwen3-14b, phi4-mini, nemotron, moonshot, Jamba ----
+
+ZOO_ARCHS = ("qwen3-14b", "phi4-mini-3.8b", "nemotron-4-15b",
+             "moonshot-v1-16b-a3b", "jamba-1.5-large-398b")
+
+
+@pytest.mark.parametrize("H,Hk", [(40, 8), (24, 8), (48, 8), (16, 16),
+                                  (64, 8)])
+def test_flash_kernel_at_the_zoo_groups(cuda, H, Hk):
+    """bf16 causal at hd 128 and the zoo's GQA groups (G 5, 3, 6, 1, 8:
+    odd groups one head a block, even ones two), S 640 (five 128-key
+    tiles): within the bounds of `assert_flash_close`."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    q, k, v = flash_inputs(H * Hk, cuda, 2, 640, H, Hk, 128, torch.bfloat16)
+    before = fk.flash_attention_bhsd.launches
+    got = fops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fk.flash_attention_bhsd.launches == before + 1
+    assert got.shape == (2, 640, H, 128) and bool(torch.isfinite(got).all())
+    assert_flash_close(got, q, k, v, True)
+
+
+def test_ssd_kernel_at_jambas_mixer(cuda):
+    """bf16 at Jamba's mixer: 256 heads x 64, state 16 (the wgmma N tile),
+    chunk 128, S 1024, on the tensor cores, within the derived bounds of
+    its plain version and of the reference's function."""
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    args = ssd_inputs(16, cuda, 1, 1024, 256, 64, 16, torch.bfloat16)
+    assert ssd_kernel.uses_tensor_cores(128, 64, 16, torch.bfloat16)
+    before = ssd_kernel.ssd_intra_chunk.launches
+    got = ssd_kernel.ssd_intra_chunk(*args, 128)
+    torch.cuda.synchronize()
+    assert ssd_kernel.ssd_intra_chunk.launches == before + 1
+    majorants = ssd_ref.intra_chunk_majorants(*args, 128)
+    co = ssd_ref.split_coefficients(128, 16, 8)
+    ssd_within(got, ssd_ref.split_intra_chunk(*args, 128), majorants, co,
+               "split")
+    ssd_within(got, ssd_ref.reference_intra_chunk(*args, 128), majorants,
+               co, "ref")
+
+
+def zoo_serve(model, params, n=5, prompt=8, new=8):
+    from repro_torch.serve.engine import Request, ServeEngine
+    engine = ServeEngine(model, params, batch_slots=2, max_seq=48,
+                         prompt_len=prompt)
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid, rng.integers(0, model.cfg.vocab, size=prompt),
+                    max_new_tokens=new) for rid in range(n)]
+    logits = []
+    real = model.prefill
+
+    def prefill(p, batch, max_seq):
+        out = real(p, batch, max_seq)
+        logits.append(out[0].float().cpu())
+        return out
+    model.prefill = prefill
+    for r in reqs:
+        engine.submit(r)
+    engine.run_until_drained()
+    return [r.output for r in reqs], dict(engine.stats), torch.cat(logits)
+
+
+@pytest.mark.parametrize("arch", ZOO_ARCHS)
+def test_zoo_smoke_golden_on_the_card_equals_the_cpu(cuda, arch):
+    """The smoke config in float32 (TF32 off), flag on, the same weights:
+    tests/test_launchers.py's serving traffic gives the same tokens and
+    stats on the card (the kernels) as on the CPU (their plain versions),
+    prefill logits within 1e-4 (1e-3 for Jamba, whose smoke attention
+    amplifies a float32 reordering ~100×: tests/test_torch_zoo.py); the
+    loss within rtol 1e-5, each kernel launched once per layer of its
+    kind."""
+    import dataclasses
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.moe_gating import kernel as gk
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.models import lm
+    from repro_torch.models.api import build_model
+    cfg = dataclasses.replace(get_smoke_config(arch), use_flash_kernel=True)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        on_cpu = build_model(cfg, "cpu")
+        params = on_cpu.init(torch.Generator().manual_seed(0), torch.float32)
+        card_params = _to(params, cuda)
+        host = zoo_serve(on_cpu, params)
+        card = zoo_serve(build_model(cfg, cuda), card_params)
+        tokens = np.random.default_rng(1).integers(0, cfg.vocab, (2, 40))
+        counters = (fk.flash_attention_bhsd, sk.ssd_intra_chunk,
+                    gk.gating_topk)
+        with torch.no_grad():
+            a = float(on_cpu.loss(params, {"tokens": torch.as_tensor(
+                tokens)})[0])
+            before = [c.launches for c in counters]
+            b = float(build_model(cfg, cuda).loss(card_params, {
+                "tokens": torch.as_tensor(tokens, device=cuda)})[0])
+            launched = [c.launches - n for c, n in zip(counters, before)]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert card[:2] == host[:2]
+    atol = 1e-3 if cfg.family == "hybrid" else 1e-4
+    assert float((card[2] - host[2]).abs().max()) <= atol
+    assert abs(a - b) <= 1e-5 * abs(a)
+    kinds = lm._layer_kinds(cfg) * (cfg.n_layers // len(lm._layer_kinds(cfg)))
+    assert launched == [sum(m == "attn" for m, _ in kinds),
+                        sum(m == "mamba" for m, _ in kinds),
+                        sum(f == "moe" for _, f in kinds)]
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}

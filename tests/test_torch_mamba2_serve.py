@@ -287,7 +287,7 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_model(smoke_config())
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_lm.lm_spec(dataclasses.replace(smoke_config(), family="hybrid"))
+        t_lm.lm_spec(dataclasses.replace(smoke_config(), family="vlm"))
 
 
 def test_bfloat16_prefill_through_the_tensor_core_plain_version(
