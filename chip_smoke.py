@@ -2834,7 +2834,7 @@ def moe_golden_breakdown(dev, gap):
             lc, ld = lm._layer(pc["blocks"], i), lm._layer(pd["blocks"], i)
             q, kk, _ = attn._project_qkv(cfg, lc["mixer"],
                                          rms_norm(x_c, lc["norm1"], eps),
-                                         lm._positions(x_c))
+                                         positions=lm._positions(x_c))
             kk = kk.repeat_interleave(cfg.n_heads // cfg.n_kv_heads, 2)
             score = float(torch.einsum("bqhd,bkhd->bhqk", q, kk).abs().max()
                           / cfg.hd ** 0.5)
@@ -3824,24 +3824,46 @@ def training_section(dev, timings):
 
 
 # ---------------------------------------------------------------------------
-# the model zoo: the other dense and MoE configurations and the hybrid
+# the model zoo: the other dense and MoE configurations, the hybrid, the
+# VLM and the encoder-decoder
 # ---------------------------------------------------------------------------
 
 ZOO_ARCHS = ("qwen3-14b", "phi4-mini-3.8b", "nemotron-4-15b",
-             "moonshot-v1-16b-a3b", "jamba-1.5-large-398b")
+             "moonshot-v1-16b-a3b", "jamba-1.5-large-398b", "qwen2-vl-2b",
+             "whisper-small")
 # Full width at every one.  Depth: qwen3-14b whole (40 layers, ~29.6 GB
 # of bf16 weights: the zoo's full-width main path); moonshot half (24 of
 # 48, as SERVE_LAYERS cuts the other serving paths); phi4-mini and
 # nemotron 4 layers each (scored only); Jamba one period (8 layers:
 # attention at 3, MoE on the odd sub-layers) with d_ff 24576 cut to 8192,
 # since one period at full width holds ~89 GB of bf16 weights and d_ff
-# sets no kernel's shape.
+# sets no kernel's shape; qwen2-vl-2b whole (28 layers) and whisper-small
+# whole (12 decoder layers; its 12 encoder layers are its config's).
 ZOO_LAYERS = {"qwen3-14b": 40, "phi4-mini-3.8b": 4, "nemotron-4-15b": 4,
-              "moonshot-v1-16b-a3b": 24, "jamba-1.5-large-398b": 8}
-ZOO_SERVED = ("qwen3-14b", "moonshot-v1-16b-a3b", "jamba-1.5-large-398b")
+              "moonshot-v1-16b-a3b": 24, "jamba-1.5-large-398b": 8,
+              "qwen2-vl-2b": 28, "whisper-small": 12}
+# served through ServeEngine (text prompts; the engine passes no frames,
+# so whisper is served through Model.prefill / decode_step alone)
+ZOO_SERVED = ("qwen3-14b", "moonshot-v1-16b-a3b", "jamba-1.5-large-398b",
+              "qwen2-vl-2b")
 JAMBA_D_FF = 8192
-# the flash kernel at the zoo's GQA groups, hd 128 (query heads, K/V heads)
-ZOO_FLASH_HEADS = ((40, 8), (24, 8), (48, 8), (16, 16), (64, 8))
+# the flash kernel at the zoo's scoring shapes (query heads, K/V heads,
+# S, hd) at B 4: the GQA groups at hd 128 over 4096 positions (qwen2-vl's
+# 12/2 over its 256-row vision prefix and 3840 tokens), and whisper's
+# decoder self-attention, G 1 at hd 64 over 447 positions (padded to 512
+# by ops.flash_attention)
+ZOO_FLASH_SHAPES = ((40, 8, 4096, 128), (24, 8, 4096, 128),
+                    (48, 8, 4096, 128), (16, 16, 4096, 128),
+                    (64, 8, 4096, 128), (12, 2, 4096, 128),
+                    (12, 12, 447, 64))
+# whisper-small's encoder input: 30 s of audio after its conv stride
+WHISPER_FRAMES = 1500
+# the VLM's and the encoder-decoder's serving through Model.prefill and
+# decode_step: 4 rows, qwen2-vl's 256-row vision prefix before a
+# 1024-token prompt and 64 greedy steps; whisper's 1500 frames and a
+# 4-token prompt, then 128 greedy steps
+ZOO_PREFIX_SERVE = dict(rows=4, prompt=1024, steps=64)
+ZOO_AUDIO_SERVE = dict(rows=4, prompt=4, steps=128)
 # ssd_scan at Jamba's mixer: 256 heads x 64, state 16, chunk 128
 ZOO_SSD = dict(nh=256, hd=64, st=16)
 # gating_topk at moonshot's (E 64, k 6) and Jamba's (E 16, k 2) routers:
@@ -3852,8 +3874,9 @@ ZOO_GATING = ((1024, 64, 6), (4, 64, 6), (1024, 16, 2), (4, 16, 2))
 # (the reference initializer's fan-in of the [d, H, hd] leaves), so its
 # softmax amplifies a float32 reordering ~100x per attention layer
 # (tests/test_torch_zoo.py shows it in the reference alone and holds
-# the port to it at 1e-3, HYBRID_TOL there).
-ZOO_GOLDEN_ATOL = {"jamba-1.5-large-398b": 1e-3}
+# the port to it at 1e-3, HYBRID_TOL there); whisper's encoder scores
+# reach O(70) the same way (tests/test_torch_encdec.py).
+ZOO_GOLDEN_ATOL = {"jamba-1.5-large-398b": 1e-3, "whisper-small": 1e-3}
 
 
 def zoo_config(arch, smoke=False):
@@ -3875,8 +3898,12 @@ def zoo_layer_counts(cfg):
     """{attention, Mamba, MoE}: how many layers of each kind the stack
     has, i.e. the launches of flash (per scoring call), ssd_scan (per
     scoring call or prefill) and gating_topk (per call, prefill or decode
-    step) one forward makes."""
+    step) one forward makes; the encoder-decoder's causal attention is
+    its decoder's self-attention."""
     from repro_torch.models import lm
+    if cfg.family == "audio":
+        return {"flash_attention": cfg.n_layers, "ssd_scan": 0,
+                "gating_topk": 0}
     kinds = lm._layer_kinds(cfg)
     kinds = kinds * (cfg.n_layers // len(kinds))
     return {"flash_attention": sum(m == "attn" for m, _ in kinds),
@@ -3901,7 +3928,9 @@ def kernel_device_ms(fn, reps, name):
     events in a profile of `reps` calls of `fn` after a warm-up.  A
     profile that saw another number of them than `reps` is taken again:
     one such profile, late in a run of this script, read 11 µs for a
-    130 µs launch."""
+    130 µs launch.  After three such profiles (one run of this script saw
+    0, 38 and 16 of 50 launches) the time comes from CUDA events instead
+    (`bracketed_device_ms`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -3917,43 +3946,80 @@ def kernel_device_ms(fn, reps, name):
             return sum(t for _, t in seen) * 1e3 / reps
         print(f"device time: the profile saw {calls} launches of {name} "
               f"in {reps} calls; profiling again")
-    raise AssertionError(f"device time of {name}: three profiles saw "
-                         "another number of launches than calls")
+    ms = bracketed_device_ms(fn, reps)
+    print(f"device time of {name}: three profiles dropped launches; CUDA "
+          f"events around {reps} launches queued behind a spin kernel "
+          f"read {ms * 1e3:.3f} us per launch")
+    return ms
 
 
-def flash_zoo_shape(dev, H, Hk, seed):
-    """The bf16 kernel at B 4, S 4096, (H, Hk), hd 128 causal against its
-    plain versions (`check_flash_case`), then the times of the kernel,
-    its plain version and `scaled_dot_product_attention` beside the
-    bound: CUDA events around back-to-back calls (at these milliseconds
-    the host's gaps are noise; one profiled window of SDPA summed half
-    its kernels' time, below the bound)."""
+def bracketed_device_ms(fn, reps):
+    """Device time per call of `fn`: CUDA events around `reps`
+    back-to-back calls queued behind `torch.cuda._sleep`, after a
+    warm-up.  The host queues every call while the card spins, so the
+    events time the card's work and not the host's launches (a 17 µs
+    launch read 41 µs back to back, and 21 µs with events between the
+    launches, which add ~4 µs each)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)              # ~25 ms at 1.98 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def flash_zoo_shape(dev, H, Hk, seed, S=SCORE_SEQ, hd=128):
+    """The bf16 kernel at B 4, (H, Hk), S, hd causal against its plain
+    versions (`check_flash_case`), then the times of the kernel, its plain
+    version and `scaled_dot_product_attention` beside the bound: the
+    kernel's and SDPA's device time per call from CUDA events around calls
+    queued behind a spin kernel (`bracketed_device_ms`: whisper's 447 rows
+    take ~17 µs, where calls timed back to back time the host; one
+    profiled window of SDPA summed half its kernels' time, below the
+    bound), the plain version's from CUDA events around back-to-back
+    calls.  The kernel and
+    its plain version take q, k and v padded to the blocks
+    `ops.flash_attention` picks, with kv_len S, as the scoring path
+    launches it; SDPA and the bound take the S rows."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ops import _pad_to
     from repro_torch.kernels.flash_attention.ref import rounded_flash_bhsd
-    B, S, hd = SCORE_BATCH, SCORE_SEQ, 128
+    B = SCORE_BATCH
     err = check_flash_case(dev, B, S, H, Hk, hd, torch.bfloat16, True, seed)
     q, k, v = (x.transpose(1, 2).contiguous() for x in flash_inputs(
         dev, B, S, H, Hk, hd, torch.bfloat16, seed))
+    block = min(128, max(8, 1 << (S - 1).bit_length()))
+    qp, kp, vp = (_pad_to(x, block) for x in (q, k, v))
     kw = dict(causal=True, kv_len=S)
-    fns = {"kernel": (lambda: fk.flash_attention_bhsd(q, k, v, **kw), 10),
-           "plain": (lambda: rounded_flash_bhsd(q, k, v, **kw), 2),
+    fns = {"kernel": (lambda: fk.flash_attention_bhsd(
+               qp, kp, vp, block_q=block, block_k=block, **kw), 10),
+           "plain": (lambda: rounded_flash_bhsd(qp, kp, vp, **kw), 2),
            "SDPA": (lambda: F.scaled_dot_product_attention(
                q, k, v, is_causal=True, enable_gqa=True), 10)}
-    events = {n: cuda_time_ms(fn, reps) for n, (fn, reps) in fns.items()}
+    events = {n: (cuda_time_ms if n == "plain" else bracketed_device_ms)(
+        fn, reps) for n, (fn, reps) in fns.items()}
     n_bytes, n_flop = flash_bound(B, S, H, Hk, hd, 2)
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flop / BF16_FLOP_PER_S
     by = "bytes" if t_bytes >= t_ops else "operations"
     bound_ms = max(t_bytes, t_ops) * 1e3
-    print(f"kernel time: flash_attention B={B} S={S} H={H} Hk={Hk} (G "
-          f"{H // Hk}) hd={hd} bf16 causal, ms per call by CUDA events: "
+    print(f"kernel time: flash_attention B={B} S={S} (padded "
+          f"{qp.shape[2]}) H={H} Hk={Hk} (G {H // Hk}) hd={hd} bf16 causal, "
+          f"ms per call by CUDA events (kernel and SDPA queued behind a "
+          f"spin kernel): "
           + ", ".join(f"{n} {events[n]:.4f}" for n in fns)
           + f"; bound {bound_ms:.4f} ms ({by}: {n_flop} flop at 989 TFLOP/s "
           f"bf16, {n_bytes} B at 3.35 TB/s); kernel at "
           f"{bound_ms / events['kernel']:.3f} of the bound, SDPA at "
           f"{bound_ms / events['SDPA']:.3f}")
-    del q, k, v
+    del q, k, v, qp, kp, vp
     torch.cuda.empty_cache()
     return dict(max_abs_err=err, ms=events["kernel"],
                 plain_ms=events["plain"], bound_ms=bound_ms, bound_by=by,
@@ -4019,8 +4085,8 @@ def ssd_zoo_shape(dev):
     by = "bytes" if t_bytes >= t_flop else "operations"
     bound_s = max(t_bytes, t_flop)
     print(f"kernel time: ssd_scan S={S} nh {nh} hd {hd} st {st} bf16: "
-          f"device time per launch {ms * 1e3:.3f} us (its events in the "
-          f"profile); plain version (split_intra_chunk) "
+          f"device time per launch {ms * 1e3:.3f} us (kernel_device_ms); "
+          f"plain version (split_intra_chunk) "
           f"{plain_ms * 1e3:.3f} us by CUDA events; bound "
           f"{bound_s * 1e6:.3f} us ({by}: {n_bytes} B at 3.35 TB/s = "
           f"{t_bytes * 1e6:.3f} us, {n_flop} flop at 989 TFLOP/s bf16 = "
@@ -4051,7 +4117,7 @@ def gating_zoo_shapes(dev):
             bound_ms=max(t_bytes, t_ops) * 1e3, bound_by=by,
             library_ms=None)
         print(f"kernel time: gating_topk N={N} E={E} k={k}: device time per "
-              f"launch {ms * 1e3:.3f} us (its events in the profile); plain "
+              f"launch {ms * 1e3:.3f} us (kernel_device_ms); plain "
               f"{plain_ms * 1e3:.3f} us by CUDA events (back to back, the "
               f"host's launches included); bound "
               f"{max(t_bytes, t_ops) * 1e6:.4f} us ({by}: {n_bytes} B, "
@@ -4062,9 +4128,44 @@ def gating_zoo_shapes(dev):
 def zoo_kernel_checks(dev):
     """Each model kernel at the zoo's shapes against its plain version,
     with its times and bound."""
-    flash = {f"H{H}_Hk{Hk}": flash_zoo_shape(dev, H, Hk, 30 + i)
-             for i, (H, Hk) in enumerate(ZOO_FLASH_HEADS)}
+    flash = {f"H{H}_Hk{Hk}" + ("" if (S, hd) == (SCORE_SEQ, 128) else
+                               f"_S{S}_hd{hd}"):
+             flash_zoo_shape(dev, H, Hk, 30 + i, S, hd)
+             for i, (H, Hk, S, hd) in enumerate(ZOO_FLASH_SHAPES)}
     return flash, ssd_zoo_shape(dev), gating_zoo_shapes(dev)
+
+
+def zoo_batch(cfg, B, S, dtype, seed=0):
+    """The scoring batch of `cfg`'s family, on the CPU, S positions a row:
+    tokens [B, S]; the VLM's tokens [B, S − frontend_seq] after
+    vision_embeds [B, frontend_seq, d] (the train_4k batch of
+    `src/repro/launch/shapes.py`); the encoder-decoder's frames [B, S, d]
+    and tokens [B, dec_max_seq].  Tokens from numpy, embeddings unit
+    normals in `dtype` from a seeded generator (the token embeddings' own
+    scale)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator().manual_seed(seed)
+    normal = lambda n: torch.randn((B, n, cfg.d_model), generator=gen) \
+        .to(dtype)
+    if cfg.family == "audio":
+        return {"frames": normal(S), "tokens": torch.as_tensor(
+            rng.integers(0, cfg.vocab, (B, cfg.dec_max_seq)))}
+    if cfg.family == "vlm":
+        sv = cfg.frontend_seq
+        return {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab,
+                                                       (B, S - sv))),
+                "vision_embeds": normal(sv)}
+    return {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)))}
+
+
+def batch_to(batch, dev):
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def describe_batch(batch):
+    return ", ".join(f"{k} {list(v.shape)}" for k, v in batch.items())
 
 
 def zoo_score_golden(dev, arch):
@@ -4078,33 +4179,91 @@ def zoo_score_golden(dev, arch):
     cfg = zoo_config(arch, smoke=True)
     on_cpu = build_model(cfg, "cpu")
     params = on_cpu.init(torch.Generator().manual_seed(0), torch.float32)
-    tokens = np.random.default_rng(0).integers(0, cfg.vocab,
-                                               (SCORE_BATCH, 77))
+    batch = zoo_batch(cfg, SCORE_BATCH, 77, torch.float32)
     want = zoo_layer_counts(cfg)
     with torch.inference_mode():
-        a = float(on_cpu.loss(params, {"tokens": torch.as_tensor(tokens)})[0])
+        a = float(on_cpu.loss(params, batch)[0])
         zoo_reset()
-        b = float(build_model(cfg, dev).loss(
-            to_dev(params, dev),
-            {"tokens": torch.as_tensor(tokens, device=dev)})[0])
+        b = float(build_model(cfg, dev).loss(to_dev(params, dev),
+                                             batch_to(batch, dev))[0])
     got = zoo_launches()
     rel = abs(a - b) / abs(a)
-    print(f"zoo scoring golden: {arch} smoke_config float32, {SCORE_BATCH} "
-          f"x 77 tokens: loss CPU {a:.7f}, card {b:.7f}, relative difference "
-          f"{rel:.3e} (tolerance {SCORE_LOSS_RTOL}); launches {got}")
+    print(f"zoo scoring golden: {arch} smoke_config float32, "
+          f"{describe_batch(batch)}: loss CPU {a:.7f}, card {b:.7f}, "
+          f"relative difference {rel:.3e} (tolerance {SCORE_LOSS_RTOL}); "
+          f"launches {got}")
     if not (np.isfinite(b) and rel <= SCORE_LOSS_RTOL and got == want):
         raise AssertionError(f"zoo scoring golden {arch}: loss {b} on the "
                              f"card vs {a} on the CPU, launches {got} "
                              f"(want {want})")
 
 
+def greedy_decode(model, params, batch, max_seq, steps):
+    """`Model.prefill` of `batch`, then `steps` greedy `decode_step`s of
+    every row from the prefilled length (the VLM's prefix included):
+    (tokens [rows, steps + 1] on the CPU, every step's logits stacked,
+    prefill seconds, decode seconds), synchronised on the card."""
+    import torch
+    sync = (torch.cuda.synchronize if model.device.type == "cuda"
+            else lambda: None)
+    pos = batch["tokens"].shape[1] + (batch["vision_embeds"].shape[1]
+                                      if "vision_embeds" in batch else 0)
+    sync()
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(params, batch, max_seq)
+    sync()
+    t1 = time.perf_counter()
+    out = [logits]
+    for i in range(steps):
+        tok = torch.argmax(out[-1], -1)[:, None]
+        logits, caches = model.decode_step(params, tok, pos + i, caches)
+        out.append(logits)
+    sync()
+    t2 = time.perf_counter()
+    logits = torch.stack(out, 1)
+    return (torch.argmax(logits, -1).cpu(), logits.float().cpu(),
+            t1 - t0, t2 - t1)
+
+
+def encdec_serve_golden(dev, arch, atol):
+    """The encoder-decoder's smoke config in float32 on the CPU and on the
+    card, same weights and inputs (4 rows of 77 frames, a 4-token prompt,
+    8 greedy steps through `Model.prefill` and `decode_step`, as the
+    engine cannot serve it): the same tokens, logits within `atol`."""
+    import torch
+    from repro_torch.models.api import build_model
+    cfg = zoo_config(arch, smoke=True)
+    on_cpu = build_model(cfg, "cpu")
+    params = on_cpu.init(torch.Generator().manual_seed(0), torch.float32)
+    batch = zoo_batch(cfg, SCORE_BATCH, 77, torch.float32, seed=1)
+    batch["tokens"] = batch["tokens"][:, :4]
+    with torch.inference_mode():
+        a = greedy_decode(on_cpu, params, batch, 77, GOLDEN_NEW)
+        b = greedy_decode(build_model(cfg, dev), to_dev(params, dev),
+                          batch_to(batch, dev), 77, GOLDEN_NEW)
+    err = float((a[1] - b[1]).abs().max())
+    print(f"serving golden: {arch} smoke_config float32, "
+          f"{describe_batch(batch)}, {GOLDEN_NEW} greedy steps: tokens "
+          f"equal {torch.equal(a[0], b[0])}; logits max abs diff "
+          f"{err:.3e} (tolerance {atol}) of max |logit| "
+          f"{float(a[1].abs().max()):.4f}")
+    if not (torch.equal(a[0], b[0]) and err <= atol):
+        raise AssertionError(f"serving golden {arch}: tokens differ or "
+                             f"logits off by {err}, CPU vs card")
+    return err
+
+
 def zoo_goldens(dev):
     """Each zoo architecture's smoke golden: serving (tokens equal, prefill
-    logits within GOLDEN_LOGIT_ATOL or ZOO_GOLDEN_ATOL) and scoring."""
+    logits within GOLDEN_LOGIT_ATOL or ZOO_GOLDEN_ATOL; the
+    encoder-decoder's through `encdec_serve_golden`) and scoring."""
     gaps = {}
     for arch in ZOO_ARCHS:
-        gaps[arch] = serve_golden(dev, arch, ZOO_GOLDEN_ATOL.get(
-            arch, GOLDEN_LOGIT_ATOL))
+        atol = ZOO_GOLDEN_ATOL.get(arch, GOLDEN_LOGIT_ATOL)
+        if zoo_config(arch, smoke=True).family == "audio":
+            gaps[arch] = encdec_serve_golden(dev, arch, atol)
+        else:
+            gaps[arch] = serve_golden(dev, arch, atol)
         zoo_score_golden(dev, arch)
     return gaps
 
@@ -4233,7 +4392,9 @@ def zoo_rounded_loss(model, params, batch):
 
 
 def zoo_score(dev, model, params):
-    """`Model.loss` on [4, 4096] tokens under `torch.inference_mode()`:
+    """`Model.loss` on [4, 4096] positions (`zoo_batch`: the VLM's 256
+    vision rows and 3840 tokens; whisper's 1500 frames and its decoder's
+    448 tokens) under `torch.inference_mode()`:
     a warm-up call, SCORE_CALLS timed calls (each kernel launched once per
     layer of its kind per call), one call on the batch's first row (the
     main path's shapes per row, a quarter of the plain versions' time)
@@ -4255,9 +4416,10 @@ def zoo_score(dev, model, params):
     from torch.profiler import ProfilerActivity, profile
     cfg = model.cfg
     name = cfg.name
-    tokens = np.random.default_rng(0).integers(0, cfg.vocab,
-                                               (SCORE_BATCH, SCORE_SEQ))
-    batch = {"tokens": torch.as_tensor(tokens, device=dev)}
+    batch = batch_to(zoo_batch(
+        cfg, SCORE_BATCH, WHISPER_FRAMES if cfg.family == "audio" else
+        SCORE_SEQ, torch.bfloat16), dev)
+    scored = SCORE_BATCH * (batch["tokens"].shape[1] - 1)
     per_call = zoo_layer_counts(cfg)
     with torch.inference_mode():
         model.loss(params, batch)
@@ -4279,11 +4441,13 @@ def zoo_score(dev, model, params):
             raise AssertionError(f"zoo scoring {name}: launches {launches} "
                                  f"in {SCORE_CALLS} calls, want {want}")
         if not (np.isfinite(losses[0]) and len(set(losses)) == 1 and
-                float(metrics["tokens"]) == SCORE_BATCH * (SCORE_SEQ - 1)):
-            raise AssertionError(f"zoo scoring {name}: losses {losses}")
+                float(metrics["tokens"]) == scored):
+            raise AssertionError(f"zoo scoring {name}: losses {losses}, "
+                                 f"{float(metrics['tokens'])} tokens scored "
+                                 f"(want {scored})")
         t0 = time.perf_counter()
         checked = zoo_checked_call(model, params,
-                                   {"tokens": batch["tokens"][:1]})
+                                   {k: v[:1] for k, v in batch.items()})
         check_wall = time.perf_counter() - t0
         if {k: n for k, (n, _) in checked.items()} != per_call:
             raise AssertionError(f"zoo scoring {name}: checked {checked}, "
@@ -4303,10 +4467,12 @@ def zoo_score(dev, model, params):
             prof_wall = time.perf_counter() - t0
     busy, by_name = device_activity(prof)
     gap = abs(losses[0] - rounded) / abs(rounded)
-    n_tokens = SCORE_BATCH * SCORE_SEQ
+    n_tokens = sum(v.shape[0] * v.shape[1] for v in batch.values())
     ms = [w * 1e3 for w in walls]
-    print(f"zoo scoring {name}: {[round(m, 2) for m in ms]} ms per call "
-          f"({n_tokens / min(walls):.1f} tokens/s at the fastest); launches "
+    print(f"zoo scoring {name} ({describe_batch(batch)}): "
+          f"{[round(m, 2) for m in ms]} ms per call "
+          f"({n_tokens / min(walls):.1f} positions/s at the fastest); "
+          f"launches "
           f"{launches} (= {SCORE_CALLS} calls x {per_call}); losses bitwise "
           f"equal across calls; peak device memory {peak:.2f} GiB; L_kernel "
           f"{losses[0]:.6f}, L_rounded (the kernels' plain versions) "
@@ -4392,6 +4558,73 @@ def zoo_serve(dev, model, params):
                 launches=r["launches"])
 
 
+def zoo_model_serve(dev, model, params):
+    """The VLM's and the encoder-decoder's serving through `Model.prefill`
+    and `decode_step` (`greedy_decode`): qwen2-vl-2b's 4 rows of a
+    256-row vision prefix and a 1024-token prompt, then 64 steps from pos
+    1280; whisper-small's 4 rows of 1500 frames and a 4-token prompt,
+    then 128 steps.  A timed run with no kernel launched (prefill and
+    decode take the plain attention, as the reference's), every logit
+    finite, then a profiled repeat with the same tokens and logits,
+    bitwise."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    cfg = model.cfg
+    name = cfg.name
+    if cfg.family == "audio":
+        kw = ZOO_AUDIO_SERVE
+        batch = zoo_batch(cfg, kw["rows"], WHISPER_FRAMES, torch.bfloat16,
+                          seed=2)
+        max_seq = WHISPER_FRAMES
+    else:
+        kw = ZOO_PREFIX_SERVE
+        batch = zoo_batch(cfg, kw["rows"], cfg.frontend_seq + kw["prompt"],
+                          torch.bfloat16, seed=2)
+        max_seq = cfg.frontend_seq + kw["prompt"] + kw["steps"]
+    batch = batch_to(batch, dev)
+    batch["tokens"] = batch["tokens"][:, :kw["prompt"]]
+    run = lambda: greedy_decode(model, params, batch, max_seq, kw["steps"])
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        zoo_reset()
+        tokens, logits, prefill_s, decode_s = run()
+        launches = zoo_launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            repeat = run()
+            prof_wall = time.perf_counter() - t0
+    busy, by_name = device_activity(prof)
+    if any(launches.values()) or not bool(torch.isfinite(logits).all()) \
+            or not (tokens.shape == (kw["rows"], kw["steps"] + 1)
+                    and bool(((0 <= tokens) & (tokens < cfg.vocab)).all())):
+        raise AssertionError(f"zoo serving {name}: launches {launches}, "
+                             f"tokens {tuple(tokens.shape)} or a logit not "
+                             "finite")
+    if not (torch.equal(repeat[0], tokens) and torch.equal(repeat[1],
+                                                            logits)):
+        raise AssertionError(f"zoo serving {name}: the profiled repeat gave "
+                             "other tokens or logits")
+    decode_ms = decode_s / kw["steps"] * 1e3
+    gen = kw["rows"] * (kw["steps"] + 1)
+    for kname, (calls, secs) in sorted(by_name.items(),
+                                       key=lambda kv: -kv[1][1])[:6]:
+        print(f"  device {secs:8.4f} s {calls:8d} calls  {kname[:90]}")
+    print(f"zoo serving {name} through Model.prefill and decode_step "
+          f"({describe_batch(batch)}, {kw['steps']} greedy steps): prefill "
+          f"{prefill_s * 1e3:.2f} ms, decode {decode_ms:.2f} ms per step "
+          f"({gen / (prefill_s + decode_s):.1f} generated tokens/s); "
+          f"launches {launches}; every logit finite; peak device memory "
+          f"{peak:.2f} GiB; the profiled repeat bitwise equal, "
+          f"{prof_wall * 1e3:.1f} ms wall, device busy {busy * 1e3:.1f} ms, "
+          f"idle share {1 - busy / prof_wall:.3f}; first tokens "
+          f"{tokens[:2, :6].tolist()}")
+    return dict(prefill_ms=prefill_s * 1e3, decode_ms=decode_ms,
+                tokens_per_s=gen / (prefill_s + decode_s), peak_gib=peak,
+                idle=1 - busy / prof_wall, launches=launches)
+
+
 def zoo_section(dev, timings):
     """The goldens, the kernels at the zoo's shapes, then each
     architecture at full width: scored, and served where ZOO_SERVED says;
@@ -4411,6 +4644,8 @@ def zoo_section(dev, timings):
         runs[arch] = {"score": zoo_score(dev, model, params)}
         if arch in ZOO_SERVED:
             runs[arch]["serve"] = zoo_serve(dev, model, params)
+        if model.cfg.family in ("vlm", "audio"):
+            runs[arch]["model serve"] = zoo_model_serve(dev, model, params)
         # the engine and its Recorder refer to each other: collect the
         # cycle, or the weights outlive this iteration
         del model, params
@@ -4432,6 +4667,16 @@ def zoo_section(dev, timings):
           f"{q['serve']['peak_gib']:.2f} GiB; flash launches "
           f"{q['score']['launches']['flash_attention']} (= {SCORE_CALLS} "
           f"calls x {ZOO_LAYERS['qwen3-14b']} layers)")
+    for arch in ("qwen2-vl-2b", "whisper-small"):
+        r = runs[arch]
+        print(f"zoo {arch} ({ZOO_LAYERS[arch]} layers, full width): scoring "
+              f"{min(r['score']['ms']):.2f} ms per call, idle share "
+              f"{r['score']['idle']:.3f}, flash launches "
+              f"{r['score']['launches']['flash_attention']}; serving "
+              f"through Model.prefill / decode_step: prefill "
+              f"{r['model serve']['prefill_ms']:.2f} ms, decode "
+              f"{r['model serve']['decode_ms']:.2f} ms per step, idle share "
+              f"{r['model serve']['idle']:.3f}")
     return dict(flash=flash, ssd=ssd, gating=gating, launches=launches)
 
 

@@ -1,14 +1,9 @@
 """Architecture configuration and registry (copy of `repro.configs.base`).
 
-One `ArchConfig` describes any of the model families `repro` supports.
-The port runs the SSM, dense, MoE and hybrid families: the registry
-resolves ``mamba2-2.7b``, ``qwen3-1.7b``, ``qwen3-14b``,
-``phi4-mini-3.8b``, ``nemotron-4-15b``, ``granite-moe-1b-a400m``,
-``moonshot-v1-16b-a3b`` and ``jamba-1.5-large-398b`` (modules
+One `ArchConfig` describes any of the model families `repro` supports,
+and the port runs all ten architectures of `ARCH_IDS` (modules
 `repro_torch.configs.<id>`, each exposing `CONFIG`, the published
-parameters, and `smoke_config()`).  The VLM (``qwen2-vl-2b``) and audio
-(``whisper-small``) architectures raise `NotImplementedError` until
-their layers are ported (ROADMAP.md, queue 1, item 11).
+parameters, and `smoke_config()`).
 """
 from __future__ import annotations
 
@@ -30,7 +25,7 @@ ARCH_IDS = (
 )
 PORTED = ("mamba2-2.7b", "qwen3-1.7b", "qwen3-14b", "phi4-mini-3.8b",
           "nemotron-4-15b", "granite-moe-1b-a400m", "moonshot-v1-16b-a3b",
-          "jamba-1.5-large-398b")
+          "jamba-1.5-large-398b", "qwen2-vl-2b", "whisper-small")
 
 _MODULES = {a: a.replace("-", "_").replace(".", "p") for a in ARCH_IDS}
 
@@ -166,12 +161,6 @@ def _module(arch_id: str):
     if arch_id not in _MODULES:
         raise KeyError(f"unknown architecture {arch_id!r}; known: "
                        f"{', '.join(ARCH_IDS)}")
-    if arch_id not in PORTED:
-        raise NotImplementedError(
-            f"{arch_id} is not ported yet: the VLM (M-RoPE, the vision "
-            "prefix) and audio (encoder-decoder) layers come with later "
-            "model-zoo slices (ROADMAP.md, queue 1, item 11); the port "
-            "runs " + ", ".join(PORTED))
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
 
 

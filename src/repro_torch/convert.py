@@ -129,11 +129,12 @@ def params_from_numpy(tree: Mapping, spec: Spec, device,
 
 def caches_from_numpy(tree, like):
     """`repro`'s serving caches with numpy leaves (as `jax.tree.map(
-    np.asarray, …)` gives them: a `KVCache` or `SSMCache`, or the hybrid's
-    dict of them by sub-layer) → the port's, shaped as the cache tree
-    `like` (`Model.init_caches`): the same dict keys and cache types, each
-    leaf of `like`'s shape and type (bfloat16 carried over by its bits)
-    on `like`'s device."""
+    np.asarray, …)` gives them: a `KVCache` or `SSMCache`, the hybrid's
+    dict of them by sub-layer, or the encoder-decoder's `DecCache`, whose
+    first field is itself a `KVCache`) → the port's, shaped as the cache
+    tree `like` (`Model.init_caches`): the same dict keys and cache types,
+    each leaf of `like`'s shape and type (bfloat16 carried over by its
+    bits) on `like`'s device."""
     if isinstance(like, Mapping):
         got = sorted(tree) if isinstance(tree, Mapping) else \
             type(tree).__name__
@@ -146,6 +147,9 @@ def caches_from_numpy(tree, like):
                          f"the tree {len(tree)}")
     out = []
     for name, a, t in zip(like._fields, tree, like):
+        if not isinstance(t, torch.Tensor):
+            out.append(caches_from_numpy(a, t))
+            continue
         a = np.asarray(a)
         if a.shape != tuple(t.shape):
             raise ValueError(f"cache `{name}` has shape {a.shape}, the "

@@ -6,10 +6,11 @@
 
 The flags are the reference launcher's (`repro.launch.serve`) plus
 `--device` (default ``cuda``); `--arch` takes ``granite-moe-1b-a400m``
-(the default, as the reference launcher's) or any other ported
-architecture (`configs.base.PORTED`: the SSM, dense, MoE and hybrid
-families); ``qwen2-vl-2b`` and ``whisper-small`` raise
-`NotImplementedError`.  The model runs with ``use_flash_kernel=True``:
+(the default, as the reference launcher's) or any other architecture
+(`configs.base.PORTED`) the engine serves: ``qwen2-vl-2b`` on text
+prompts; ``whisper-small`` raises `ValueError`, since the engine passes
+no frames (the reference's fails at its first prefill).  The model runs
+with ``use_flash_kernel=True``:
 the SSD scan of the Mamba layers and the MoE router's gating go through
 their CUDA kernels on the card and through the kernels' plain versions
 on the CPU; the attention of prefill and decode is the plain one, as the

@@ -6,9 +6,11 @@ supervised loop (straggler detection + restart-on-failure).
 
 The flags are the reference launcher's (`repro.launch.train`) plus
 `--device` (default ``cuda``, which raises without a card).  `--arch`
-takes the ported architectures (`configs.base.PORTED`: the SSM, dense,
-MoE and hybrid families; ``qwen3-1.7b`` the default); ``qwen2-vl-2b``
-and ``whisper-small`` raise `NotImplementedError`.  Parameters are drawn in
+takes the decoder-only architectures (`configs.base.PORTED`;
+``qwen3-1.7b`` the default), which train on the pipeline's tokens (the
+VLM without a vision prefix, as the reference's launcher trains it);
+``whisper-small`` raises `ValueError`, since its loss needs frames,
+which neither launcher feeds.  Parameters are drawn in
 bfloat16 from a generator seeded with 0 on the device; the model trains
 with its kernels off (`use_flash_kernel=False`), as the reference
 trains.  `--resume` restores `(params, AdamWState)` from the latest
@@ -63,6 +65,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family == "audio":
+        raise ValueError(f"{cfg.name}: the launcher feeds tokens only, and "
+                         "the encoder-decoder's loss needs frames")
     device = resolve_device(args.device)
     model, opt_cfg, step_fn = build_trainer(cfg, args.batch, args.seq,
                                             args.lr, args.accum, device)

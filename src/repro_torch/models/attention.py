@@ -1,14 +1,16 @@
 """Grouped-query attention (port of `repro.models.attention`): the full
-causal forward of scoring and prefill, and decode with a KV cache.
+attention of scoring and prefill, the encoder's and the cross-attention,
+and decode with a KV cache.
 
 The default math path is plain PyTorch (`_sdpa`, or `_sdpa_blockwise`
-for long sequences).  `cfg.use_flash_kernel` switches the scoring
-forward (`attention`, causal) to `repro_torch.kernels.flash_attention`,
-the hand-written CUDA kernel on the card; prefill and decode always take
-the plain path, as in the reference.  Every dense, MoE and hybrid
-configuration runs through it (GQA groups of 1 to 8 query heads per K/V
-head); cross-attention (audio) and M-RoPE (VLM) come with later
-model-zoo slices (ROADMAP.md, queue 1, item 11).
+for long sequences).  `cfg.use_flash_kernel` switches the causal
+self-attention of the scoring forward (`attention` without `x_kv`) to
+`repro_torch.kernels.flash_attention`, the hand-written CUDA kernel on
+the card; the encoder's non-causal attention, the cross-attention,
+prefill and decode always take the plain path, as in the reference.
+Every family runs through it (GQA groups of 1 to 8 query heads per K/V
+head); with `cfg.mrope_sections` and `positions3` the rotation is
+M-RoPE, else RoPE.
 """
 from __future__ import annotations
 
@@ -19,13 +21,15 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels.flash_attention import ops as fa
-from .layers import apply_rope, rms_norm
+from .layers import apply_mrope, apply_rope, rms_norm
 from .params import ParamDef, Spec
 
 NEG_INF = -2.0e38
 
 
-def attn_spec(cfg: ArchConfig) -> Spec:
+def attn_spec(cfg: ArchConfig, cross: bool = False) -> Spec:
+    """The projections; q/k norms with `cfg.qk_norm`, except on the
+    cross-attention (`cross`)."""
     d, H, Hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     spec = {
         "q": ParamDef((d, H, hd), ("embed", "heads", "head_dim")),
@@ -33,23 +37,34 @@ def attn_spec(cfg: ArchConfig) -> Spec:
         "v": ParamDef((d, Hk, hd), ("embed", "kv_heads", "head_dim")),
         "o": ParamDef((H, hd, d), ("heads", "head_dim", "embed")),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         spec["q_norm"] = ParamDef((hd,), ("head_dim",), init="ones")
         spec["k_norm"] = ParamDef((hd,), ("head_dim",), init="ones")
     return spec
 
 
-def _project_qkv(cfg: ArchConfig, p, x, positions=None):
-    """q [B,S,H,hd], k and v [B,S,Hk,hd]; qk-norm per head, then RoPE."""
+def _project_qkv(cfg: ArchConfig, p, x, x_kv=None, positions=None,
+                 positions3=None, use_rope=True):
+    """q [B,S,H,hd] from x, k and v [B,Skv,Hk,hd] from `x_kv` (default
+    x); qk-norm per head, then M-RoPE (with `cfg.mrope_sections` and
+    `positions3` [3,B,S]) or RoPE, unless `use_rope` is off or there are
+    no `positions`."""
+    x_kv = x if x_kv is None else x_kv
     q = torch.einsum("bsd,dhk->bshk", x, p["q"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, p["k"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p["v"].to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", x_kv, p["k"].to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", x_kv, p["v"].to(x.dtype))
     if cfg.qk_norm and "q_norm" in p:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    if positions is not None:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+    if use_rope and positions is not None:
+        if cfg.mrope_sections is not None and positions3 is not None:
+            q = apply_mrope(q, positions3, cfg.mrope_sections,
+                            cfg.rope_theta)
+            k = apply_mrope(k, positions3, cfg.mrope_sections,
+                            cfg.rope_theta)
+        else:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -154,14 +169,16 @@ def _dispatch_sdpa(cfg: ArchConfig, q, k, v, causal: bool, mask=None):
     return _sdpa(cfg, q, k, v, mask)
 
 
-def attention(cfg: ArchConfig, p, x, positions, causal=True,
+def attention(cfg: ArchConfig, p, x, positions, positions3=None,
+              causal=True, x_kv=None, use_rope=True,
               interpret: bool = False):
-    """Full self-attention of the scoring forward.  With
-    `cfg.use_flash_kernel` and a causal mask it goes through the flash
+    """Full attention of the scoring forward and the encoder (`x_kv`
+    None: self-attention; `causal` off: the encoder's).  With
+    `cfg.use_flash_kernel`, causal self-attention goes through the flash
     kernel (its plain version on the CPU or under `interpret=True`), which
     has no gradient."""
-    q, k, v = _project_qkv(cfg, p, x, positions)
-    if cfg.use_flash_kernel and causal:
+    q, k, v = _project_qkv(cfg, p, x, x_kv, positions, positions3, use_rope)
+    if cfg.use_flash_kernel and causal and x_kv is None:
         out = fa.flash_attention(q, k, v, causal=True, interpret=interpret)
     else:
         out = _dispatch_sdpa(cfg, q, k, v, causal)
@@ -193,24 +210,34 @@ def _write(cache: KVCache, k, v, start: int) -> KVCache:
     return cache
 
 
-def prefill_attention(cfg: ArchConfig, p, x, positions, cache: KVCache):
+def prefill_attention(cfg: ArchConfig, p, x, positions, cache: KVCache,
+                      positions3=None):
     """Causal attention that also writes the prompt K/V into the cache."""
-    q, k, v = _project_qkv(cfg, p, x, positions)
+    q, k, v = _project_qkv(cfg, p, x, None, positions, positions3)
     cache = _write(cache, k, v, 0)
     out = _dispatch_sdpa(cfg, q, k, v, causal=True)
     y = torch.einsum("bshk,hkd->bsd", out, p["o"].to(out.dtype))
     return y, cache
 
 
-def decode_attention(cfg: ArchConfig, p, x, pos: int, cache: KVCache):
+def decode_attention(cfg: ArchConfig, p, x, pos: int, cache: KVCache,
+                     positions3=None):
     """One-token decode: x [B,1,d]; `pos` the current index (same for all
     batch rows).  Returns (y [B,1,d], cache')."""
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
-    q, k, v = _project_qkv(cfg, p, x, positions)
+    q, k, v = _project_qkv(cfg, p, x, None, positions, positions3)
     cache = _write(cache, k, v, pos)
     Smax = cache.k.shape[1]
     mask = (torch.arange(Smax, device=x.device)[None, None, :] <= pos)[:, None]
     out = _sdpa(cfg, q, cache.k, cache.v, mask)
     y = torch.einsum("bshk,hkd->bsd", out, p["o"].to(out.dtype))
     return y, cache
+
+
+def cross_attention_cached(cfg: ArchConfig, p, x, enc_k, enc_v):
+    """Decoder cross-attention against precomputed encoder K/V
+    [B,S_enc,Hk,hd]: no q-norm, no rotation, no mask."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["q"].to(x.dtype))
+    out = _dispatch_sdpa(cfg, q, enc_k, enc_v, causal=False)
+    return torch.einsum("bshk,hkd->bsd", out, p["o"].to(out.dtype))

@@ -1,10 +1,10 @@
 """Shared layer primitives (port of `repro.models.layers`): the RMS norm,
-rotary embeddings (plain RoPE; M-RoPE comes with the VLM slice), the MLP
+rotary embeddings (RoPE, and M-RoPE for the VLM), the MLP
 variants (SwiGLU / squared-ReLU / GELU), the token embedding and head,
 and the chunked cross-entropy."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +31,30 @@ def apply_rope(x, positions, theta: float = 1e6):
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, x.device)                 # [hd/2]
     angles = positions[..., None].float() * freqs           # [B,S,hd/2]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x, positions3, sections: Tuple[int, int, int],
+                theta: float = 1e6):
+    """Multimodal RoPE (Qwen2-VL): the hd/2 rotary frequency bands are
+    split into (temporal, height, width) sections, each rotated by its own
+    position stream.  x: [B, S, H, hd]; positions3: [3, B, S] (int).  The
+    sections are cut to hd/2 bands, as the reference cuts them; bands past
+    their sum would find no stream, so a shorter sum raises."""
+    hd = x.shape[-1]
+    if sum(sections) < hd // 2:
+        raise ValueError(f"M-RoPE sections {sections} cover fewer than the "
+                         f"{hd // 2} frequency bands of head_dim {hd}")
+    freqs = rope_freqs(hd, theta, x.device)                 # [hd/2]
+    sec = torch.cat([torch.full((s,), i, dtype=torch.int64, device=x.device)
+                     for i, s in enumerate(sections)])[:hd // 2]
+    p = positions3.permute(1, 2, 0).float()                 # [B,S,3]
+    band_pos = torch.gather(p, -1, sec.expand(p.shape[:2] + sec.shape))
+    angles = band_pos * freqs                               # [B,S,hd/2]
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)

@@ -1,5 +1,5 @@
-"""Decoder-only language models, the SSM (Mamba2), dense, MoE and hybrid
-(Jamba) families; port of `repro.models.lm`.
+"""Decoder-only language models, the SSM (Mamba2), dense, MoE, hybrid
+(Jamba) and VLM (Qwen2-VL) families; port of `repro.models.lm`.
 
 One parameter spec and the entry points `forward_hidden`,
 `forward_train` and `lm_loss` (the training objective, which scoring
@@ -18,9 +18,11 @@ Under grad mode `forward_hidden` wraps each layer, or each period of the
 hybrid, in `_remat` (the reference wraps its scan body): `cfg.remat`
 "full" recomputes it in the backward pass, "dots" saves only the matrix
 products without batch dimensions, "none" saves everything; scoring and
-serving run no remat.  The VLM and audio families raise
-`NotImplementedError` until their layers are ported (ROADMAP.md, queue
-1, item 11).
+serving run no remat.  The VLM is the dense stack with M-RoPE and an
+optional prefix of precomputed vision embeddings (`extra_embeds`,
+prepended to the token embeddings; no loss on it); its three position
+streams are the same stream, as the reference builds them
+(`_positions3`).  The audio family is `encdec`'s.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import functools
 from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ArchConfig
@@ -49,12 +52,11 @@ def _layer_kinds(cfg: ArchConfig):
                  "moe" if cfg.moe_period and i % cfg.moe_period == 1
                  else "mlp")
                 for i in range(cfg.attn_period)]
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         return [("attn", "moe" if cfg.is_moe else "mlp")]
-    raise NotImplementedError(
-        f"the {cfg.family} family ({cfg.name}) is not ported yet: its "
-        "layers come with a later model-zoo slice (ROADMAP.md, queue 1, "
-        "item 11)")
+    raise ValueError(f"{cfg.name} is of the {cfg.family} family, which is "
+                     "not a decoder-only stack (the encoder-decoder is "
+                     "models.encdec's)")
 
 
 def _period(cfg: ArchConfig):
@@ -95,8 +97,8 @@ def lm_spec(cfg: ArchConfig) -> Spec:
 
 
 def _apply_block(cfg: ArchConfig, mixer: str, ffn: str, p, x, *,
-                 positions=None, cache=None, mode: str = "train", pos=None,
-                 interpret: bool = False):
+                 positions=None, positions3=None, cache=None,
+                 mode: str = "train", pos=None, interpret: bool = False):
     """Pre-norm mixer block with its residual, then the FFN and its
     residual (no FFN in the SSM family).  Returns (x, cache, aux): the
     MoE layer's aux loss in training mode, else None."""
@@ -104,14 +106,15 @@ def _apply_block(cfg: ArchConfig, mixer: str, ffn: str, p, x, *,
     new_cache = cache
     if mixer == "attn":
         if mode == "train":
-            y = attn.attention(cfg, p["mixer"], h, positions,
+            y = attn.attention(cfg, p["mixer"], h, positions, positions3,
                                interpret=interpret)
         elif mode == "prefill":
             y, new_cache = attn.prefill_attention(cfg, p["mixer"], h,
-                                                  positions, cache)
+                                                  positions, cache,
+                                                  positions3)
         else:
             y, new_cache = attn.decode_attention(cfg, p["mixer"], h, pos,
-                                                 cache)
+                                                 cache, positions3)
     elif mode == "decode":
         y, new_cache = ssm_lib.ssm_decode_step(cfg, p["mixer"], h, cache)
     else:
@@ -153,6 +156,23 @@ def _positions(x):
     return torch.arange(S, device=x.device)[None].expand(B, S)
 
 
+def _positions3(cfg: ArchConfig, positions):
+    """M-RoPE's (t, h, w) streams [3,B,S]: `positions` three times, as the
+    reference's `_positions3_default`; None without `mrope_sections`."""
+    if cfg.mrope_sections is None:
+        return None
+    return positions[None].expand((3,) + tuple(positions.shape))
+
+
+def _embed(params, tokens, extra_embeds):
+    """Token embeddings, after the prefix `extra_embeds` [B,Sv,d] cast to
+    their type when given."""
+    x = embed_tokens(params["embed"], tokens)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+    return x
+
+
 def _run_stack(cfg: ArchConfig, blocks_p, x, caches, mode: str, pos=None,
                interpret: bool = False):
     """Walk the stacked layer axis (the hybrid's periods, and each
@@ -160,7 +180,14 @@ def _run_stack(cfg: ArchConfig, blocks_p, x, caches, mode: str, pos=None,
     layers write K/V into the stacked caches in place (each layer's cache
     is a view of them); the SSM layers' new states are stacked anew."""
     period = _period(cfg)
-    positions = _positions(x) if mode == "prefill" else None
+    if mode == "prefill":
+        positions = _positions(x)
+        positions3 = _positions3(cfg, positions)
+    else:
+        positions = positions3 = None
+        if cfg.mrope_sections is not None:
+            positions3 = _positions3(cfg, torch.full(
+                (x.shape[0], 1), pos, dtype=torch.int64, device=x.device))
     news = {key: [] for key, _, _ in period}
     for i in range(cfg.n_layers // len(period)):
         p_i = _layer(blocks_p, i)
@@ -168,7 +195,8 @@ def _run_stack(cfg: ArchConfig, blocks_p, x, caches, mode: str, pos=None,
             stacked = _sub(caches, key)
             cache_l = type(stacked)(*(t[i] for t in stacked))
             x, new, _ = _apply_block(cfg, mixer, ffn, _sub(p_i, key), x,
-                                     positions=positions, cache=cache_l,
+                                     positions=positions,
+                                     positions3=positions3, cache=cache_l,
                                      mode=mode, pos=pos, interpret=interpret)
             news[key].append(new)
     out = {}
@@ -229,19 +257,23 @@ def _remat(cfg: ArchConfig, fn):
     raise ValueError(f"unknown remat {cfg.remat!r}: none, full or dots")
 
 
-def forward_hidden(cfg: ArchConfig, params, tokens, interpret: bool = False):
-    """tokens [B,S] (inputs) → (hidden [B,S,d], aux_loss: the MoE layers'
+def forward_hidden(cfg: ArchConfig, params, tokens, extra_embeds=None,
+                   interpret: bool = False):
+    """tokens [B,S] (inputs), `extra_embeds` [B,Sv,d] an optional
+    multimodal prefix → (hidden [B,Sv+S,d], aux_loss: the MoE layers'
     sum, 0 without them; the hybrid's summed over each period's
     sub-layers, then over the periods, as the reference's scan does)."""
     period = _period(cfg)
-    x = embed_tokens(params["embed"], tokens)
+    x = _embed(params, tokens, extra_embeds)
     positions = _positions(x)
+    positions3 = _positions3(cfg, positions)
 
     def layers(x, p_l):
         total = None
         for key, mixer, ffn in period:
             x, _, aux = _apply_block(cfg, mixer, ffn, _sub(p_l, key), x,
-                                     positions=positions, mode="train",
+                                     positions=positions,
+                                     positions3=positions3, mode="train",
                                      interpret=interpret)
             if aux is not None:
                 total = aux if total is None else total + aux
@@ -256,21 +288,26 @@ def forward_hidden(cfg: ArchConfig, params, tokens, interpret: bool = False):
     return x, total
 
 
-def forward_train(cfg: ArchConfig, params, tokens, interpret: bool = False):
+def forward_train(cfg: ArchConfig, params, tokens, extra_embeds=None,
+                  interpret: bool = False):
     """Full-logits variant (tests / small models)."""
-    x, aux = forward_hidden(cfg, params, tokens, interpret)
+    x, aux = forward_hidden(cfg, params, tokens, extra_embeds, interpret)
     return unembed(cfg, params["embed"], x, cfg.norm_eps), aux
 
 
 def lm_loss(cfg: ArchConfig, params, batch,
             interpret: bool = False) -> Tuple[torch.Tensor, Dict]:
     """Causal LM loss via chunked CE (never materializes full logits).
-    batch: {"tokens": [B,S]}.  Inputs keep the full length S; the last
-    position's label is −1 (masked), as in the reference."""
+    batch: {"tokens": [B,S]} (+ "vision_embeds" [B,Sv,d], the VLM's
+    prefix, whose Sv positions get label −1).  Inputs keep the full length
+    S; the last position's label is −1 (masked), as in the reference."""
     tokens = batch["tokens"].long()
     labels = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -1)],
                        dim=1)
-    hidden, aux = forward_hidden(cfg, params, tokens, interpret)
+    extra = batch.get("vision_embeds")
+    hidden, aux = forward_hidden(cfg, params, tokens, extra, interpret)
+    if extra is not None:
+        labels = F.pad(labels, (extra.shape[1], 0), value=-1)
     nll_sum, cnt = chunked_ce(cfg, params["embed"], hidden, labels)
     denom = torch.clamp_min(cnt, 1)
     loss = nll_sum / denom
@@ -279,12 +316,13 @@ def lm_loss(cfg: ArchConfig, params, batch,
                    "tokens": denom.to(torch.float32)}
 
 
-def prefill(cfg: ArchConfig, params, tokens, max_seq: int, caches=None,
-            interpret: bool = False):
-    """Prompt processing; writes the caches (K/V, or the SSM state with a
-    bfloat16 conv state, unless `caches` are given).  Returns
-    (logits_last [B,vocab], caches, seq_len)."""
-    x = embed_tokens(params["embed"], tokens)
+def prefill(cfg: ArchConfig, params, tokens, max_seq: int,
+            extra_embeds=None, caches=None, interpret: bool = False):
+    """Prompt processing, after the prefix `extra_embeds` [B,Sv,d] when
+    given; writes the caches (K/V, or the SSM state with a bfloat16 conv
+    state, unless `caches` are given).  Returns (logits_last [B,vocab],
+    caches, seq_len = Sv + S)."""
+    x = _embed(params, tokens, extra_embeds)
     B, S, _ = x.shape
     if caches is None:
         caches = init_caches(cfg, B, max_seq, device=x.device)

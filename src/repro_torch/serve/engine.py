@@ -8,7 +8,10 @@ stacked caches, leaf by leaf (any cache tree: a NamedTuple, or the
 hybrid's dict of them).  The first token is the argmax of the prefill logits.
 Each step then decodes every slot one token with one shared position;
 finished slots (max_new_tokens, EOS or max_seq − 1) free immediately.
-The decode step runs eagerly.
+The decode step runs eagerly.  Prefill passes the prompt's tokens only,
+as the reference's engine does: the VLM serves text prompts, and the
+encoder-decoder (audio), whose prefill needs frames, is refused at
+construction.
 """
 from __future__ import annotations
 
@@ -57,6 +60,12 @@ class Request:
 class ServeEngine:
     def __init__(self, model: Model, params, batch_slots: int = 4,
                  max_seq: int = 128, prompt_len: int = 16):
+        if model.cfg.family == "audio":
+            raise ValueError(
+                f"{model.cfg.name}: the engine passes no frames to prefill "
+                "(only tokens, as the reference's engine), and the "
+                "encoder-decoder's prefill needs them; drive it through "
+                "Model.prefill and Model.decode_step")
         self.model = model
         self.cfg = model.cfg
         self.params = params

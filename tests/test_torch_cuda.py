@@ -391,6 +391,8 @@ def assert_flash_close(got, q, k, v, causal, **blocks):
     (2, 77, 4, 1, 64, False, torch.bfloat16),     # kv_len 77 < Skv 128
     (1, 96, 6, 2, 32, True, torch.bfloat16),      # G 3: one head a block
     (2, 100, 4, 4, 16, False, torch.bfloat16),    # G 1, hd 16
+    (1, 447, 12, 12, 64, True, torch.bfloat16),   # whisper's decoder
+    (1, 1024, 12, 2, 128, True, torch.bfloat16),  # qwen2-vl's G 6, Hk 2
 ])
 def test_flash_kernel_matches_plain_version(cuda, B, S, H, Hk, hd, causal,
                                             dtype):
@@ -910,3 +912,69 @@ def test_zoo_smoke_golden_on_the_card_equals_the_cpu(cuda, arch):
 def _to(tree, device):
     return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
+
+
+def greedy(model, params, batch, steps=8):
+    """Model.prefill, then `steps` greedy decode steps: (tokens, logits)
+    on the CPU."""
+    logits, caches = model.prefill(params, batch, 64)
+    pos = batch["tokens"].shape[1] + (batch["vision_embeds"].shape[1]
+                                      if "vision_embeds" in batch else 0)
+    out = [logits]
+    for i in range(steps):
+        tok = torch.argmax(out[-1], -1)[:, None]
+        logits, caches = model.decode_step(params, tok, pos + i, caches)
+        out.append(logits)
+    logits = torch.stack(out, 1).float().cpu()
+    return torch.argmax(logits, -1), logits
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "whisper-small"])
+def test_vlm_and_encdec_smoke_goldens_on_the_card_equal_the_cpu(cuda, arch):
+    """The smoke config in float32 (TF32 off), flag on, the same weights
+    and inputs: the loss on the family's batch (qwen2-vl's 8-row vision
+    prefix before 32 tokens; whisper's 40 frames and 32 decoder tokens)
+    within rtol 1e-5, one flash launch per (decoder) layer; prefill with
+    the prefix or the frames and 8 greedy decode steps give the same
+    tokens, logits within 1e-4 (1e-3 for whisper, whose smoke encoder's
+    scores reach O(70): tests/test_torch_encdec.py); the VLM's text
+    prompts through the engine, the same tokens and stats."""
+    import dataclasses
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models.api import build_model
+    cfg = dataclasses.replace(get_smoke_config(arch), use_flash_kernel=True)
+    gen = torch.Generator().manual_seed(3)
+    rng = np.random.default_rng(3)
+    embeds = torch.randn((2, 40 if cfg.family == "audio" else 8, 64),
+                         generator=gen)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (2, 32))),
+             "frames" if cfg.family == "audio" else "vision_embeds": embeds}
+    prompt = dict(batch, tokens=batch["tokens"][:, :4])
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        on_cpu = build_model(cfg, "cpu")
+        on_card = build_model(cfg, cuda)
+        params = on_cpu.init(torch.Generator().manual_seed(0), torch.float32)
+        card_params = _to(params, cuda)
+        with torch.no_grad():
+            a = float(on_cpu.loss(params, batch)[0])
+            before = fk.flash_attention_bhsd.launches
+            b = float(on_card.loss(card_params, _to(batch, cuda))[0])
+            launched = fk.flash_attention_bhsd.launches - before
+            host = greedy(on_cpu, params, prompt)
+            card = greedy(on_card, card_params, _to(prompt, cuda))
+        if cfg.family == "vlm":
+            served = (zoo_serve(on_cpu, params),
+                      zoo_serve(build_model(cfg, cuda), card_params))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert abs(a - b) <= 1e-5 * abs(a)
+    assert launched == cfg.n_layers
+    assert torch.equal(card[0], host[0])
+    atol = 1e-3 if cfg.family == "audio" else 1e-4
+    assert float((card[1] - host[1]).abs().max()) <= atol
+    if cfg.family == "vlm":
+        assert served[1][:2] == served[0][:2]
+        assert float((served[1][2] - served[0][2]).abs().max()) <= atol

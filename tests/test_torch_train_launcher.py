@@ -105,6 +105,10 @@ def test_launcher_defaults_to_the_card(tmp_path):
 
 
 def test_launcher_raises_for_unported_families(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        port_main(["--arch", "qwen2-vl-2b", "--steps", "1",
+    """The launcher feeds tokens only: the encoder-decoder, whose loss
+    needs frames, is refused before anything is built (the reference's
+    launcher feeds it no frames either)."""
+    with pytest.raises(ValueError, match="frames"):
+        port_main(["--arch", "whisper-small", "--steps", "1",
                    "--ckpt-dir", str(tmp_path)])
+    assert not list(tmp_path.iterdir())
