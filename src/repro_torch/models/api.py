@@ -3,13 +3,15 @@ decoder-only stacks of `lm` (SSM, dense, MoE, hybrid, VLM) and the
 encoder-decoder of `encdec` (audio).
 
 `Model(cfg, device)` exposes
-    spec / init / n_params
+    spec / init / n_params / param_axes
     loss(params, batch) → (loss, metrics)                 — training objective
     prefill(params, batch, max_seq) → (logits, caches)   — prompt phase
     decode_step(params, token, pos, caches)               — decode phase
-    init_caches
-`interpret=True` makes every kernel on the path run its plain PyTorch
-version, on whatever device; the card's comparison run uses it.
+    init_caches / cache_axes
+`param_axes` and `cache_axes` are the logical-axes trees that the rule
+sets of `sharding.axes` map onto a mesh.  `interpret=True` makes every
+kernel on the path run its plain PyTorch version, on whatever device;
+the card's comparison run uses it.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import torch
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from . import encdec, lm
-from .params import init_params, n_params
+from .params import axes_tree, init_params, n_params
 
 
 class Model:
@@ -34,6 +36,9 @@ class Model:
     # --- parameters ---
     def init(self, generator: torch.Generator, dtype=torch.bfloat16):
         return init_params(self.spec, generator, dtype, self.device)
+
+    def param_axes(self):
+        return axes_tree(self.spec)
 
     def n_params(self) -> int:
         return n_params(self.spec)
@@ -80,6 +85,11 @@ class Model:
             return encdec.init_dec_caches(self.cfg, batch, max_seq, dtype,
                                           self.device)
         return lm.init_caches(self.cfg, batch, max_seq, dtype, self.device)
+
+    def cache_axes(self):
+        if self.is_encdec:
+            return encdec.dec_cache_axes(self.cfg)
+        return lm.cache_axes(self.cfg)
 
 
 def build_model(cfg: ArchConfig, device="cuda",

@@ -127,6 +127,13 @@ class DecCache(NamedTuple):
     cross_v: torch.Tensor
 
 
+def dec_cache_axes(cfg: ArchConfig) -> DecCache:
+    """Logical axes of `init_dec_caches`' output, the reference's tree."""
+    kv = ("layers", "batch", "seq", "kv_heads", "head_dim")
+    cx = ("layers", "batch", "seq_kv", "kv_heads", "head_dim")
+    return DecCache(attn.KVCache(kv, kv), cx, cx)
+
+
 def precompute_cross(cfg: ArchConfig, params, enc_out):
     """Every decoder layer's cross K and V, stacked [L, B, S_enc, Hk, hd]."""
     ks, vs = zip(*(_cross_kv(cfg, p["cross"], enc_out)

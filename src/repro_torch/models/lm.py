@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ArchConfig
+from ..sharding.axes import shard
 from . import attention as attn
 from . import moe as moe_lib
 from . import ssm as ssm_lib
@@ -228,6 +229,22 @@ def init_caches(cfg: ArchConfig, batch: int, max_seq: int,
     return out[None] if None in out else out
 
 
+def cache_axes(cfg: ArchConfig):
+    """Logical axes of `init_caches`' output, the reference's tree: a
+    `KVCache` or `SSMCache` of axes tuples, or the hybrid's dict of them
+    by sub-layer."""
+    def one(mixer):
+        if mixer == "attn":
+            kv = ("layers", "batch", "seq_kv", "kv_heads", "head_dim")
+            return attn.KVCache(kv, kv)
+        return ssm_lib.SSMCache(
+            ("layers", "batch", "conv", None),
+            ("layers", "batch", "ssm_heads", "head_dim", "ssm_state"))
+
+    out = {key: one(mixer) for key, mixer, _ in _period(cfg)}
+    return out[None] if None in out else out
+
+
 def _dots_saveable(ctx, op, *args, **kwargs):
     """Selective-checkpoint policy, the counterpart of
     `jax.checkpoint_policies.dots_with_no_batch_dims_saveable`: save the
@@ -264,7 +281,8 @@ def forward_hidden(cfg: ArchConfig, params, tokens, extra_embeds=None,
     sum, 0 without them; the hybrid's summed over each period's
     sub-layers, then over the periods, as the reference's scan does)."""
     period = _period(cfg)
-    x = _embed(params, tokens, extra_embeds)
+    x = shard(_embed(params, tokens, extra_embeds), "batch", "seq",
+              "act_embed")
     positions = _positions(x)
     positions3 = _positions3(cfg, positions)
 

@@ -18,8 +18,9 @@ pass the type's exact range (`expert_counts`; the served widths, where C
 is 160 or 1) every order gives the same slots and one `torch.cumsum`
 does; elsewhere `scan_sum` takes it the way XLA runs the reference's
 `jnp.cumsum` on the CPU, so the slots are the reference's (ROADMAP.md,
-"Reference semantics the port keeps").  The reference's sharding
-annotations have no counterpart on one card.
+"Reference semantics the port keeps").  The load-balance loss's means
+are over the whole batch under a data-parallel mesh (`ranks.batch_mean`);
+the reference's other sharding annotations have no counterpart there.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import torch.nn.functional as F
 from ..configs.base import ArchConfig
 from ..kernels.moe_gating.ops import fused_gating
 from ..kernels.moe_gating.ref import reference_gating
+from ..sharding.ranks import batch_mean
 from .layers import silu
 from .params import ParamDef, Spec
 
@@ -108,8 +110,11 @@ def router_topk(cfg: ArchConfig, p, x, need_aux: bool = True,
     if need_aux:
         # Switch-style load-balance loss: E · Σ_e f_e · P_e
         E = cfg.n_experts
-        me = torch.mean(torch.softmax(logits, dim=-1), dim=0)      # [E]
-        ce = torch.mean(F.one_hot(idx.long(), E).float().sum(1), dim=0)
+        # over the whole batch when a data-parallel mesh splits it, as
+        # GSPMD takes the reference's means (`ranks.batch_mean`)
+        me = batch_mean(torch.mean(torch.softmax(logits, dim=-1), dim=0))
+        ce = batch_mean(torch.mean(F.one_hot(idx.long(), E).float().sum(1),
+                                   dim=0))
         aux = E * torch.sum(me * ce)
     return gate.to(x.dtype), idx, aux
 

@@ -2,9 +2,10 @@
 
 A model builds a nested dict of `ParamDef`s (shape + logical axes +
 initializer).  From one spec come the materialized parameters
-(`init_params`), their count (`n_params`) and the layer-stacked variant
-the layer loop walks (`stack_spec`).  Parameters are a nested dict of
-tensors with the same keys.
+(`init_params`), their count (`n_params`), their logical-axes tree
+(`axes_tree`, which the rule sets of `sharding.axes` read) and the
+layer-stacked variant the layer loop walks (`stack_spec`).  Parameters
+are a nested dict of tensors with the same keys.
 """
 from __future__ import annotations
 
@@ -63,6 +64,12 @@ def stack_spec(spec: Spec, n: int, axis_name: Optional[str] = None) -> Spec:
     """Prepend a stacked-layer dimension to every param."""
     return _map_spec(spec, lambda p: ParamDef(
         (n,) + p.shape, (axis_name,) + p.axes, p.init, p.scale))
+
+
+def axes_tree(spec: Spec):
+    """The nested dict of each parameter's logical axes (a tuple of
+    names or None per dimension)."""
+    return _map_spec(spec, lambda p: p.axes)
 
 
 def n_params(spec: Spec) -> int:

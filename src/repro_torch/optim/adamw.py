@@ -18,6 +18,16 @@ parameters' device, as the reference's `astype(jnp.float32)` makes them;
 every division by a constant divides by a float32 tensor (`f32`), since
 CUDA turns a division by a Python number into a product with its
 reciprocal, which rounds differently.
+
+ZeRO-1: `init(params, shardings)` gives moments that are DTensors, each
+holding only this rank's block (`sharding.axes.NamedSharding`, e.g.
+`tree_shardings_matched` under `opt_rules`).  `update` then runs each
+such leaf's arithmetic on that block of the parameter and the gradient
+(which are full, and equal on every rank), with the clip factor and
+`grad_norm` of the full gradients, and gathers the updated blocks back
+into every rank's parameter (`ranks.gather_full`, bitwise).  The update
+is elementwise, so each block is bitwise the one-process update of the
+same elements.
 """
 from __future__ import annotations
 
@@ -27,6 +37,7 @@ from typing import NamedTuple
 import torch
 
 from ..checkpoint.checkpointer import tree_flatten
+from ..sharding import ranks
 
 
 class AdamWConfig(NamedTuple):
@@ -52,13 +63,24 @@ def f32(value: float, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), value, dtype=torch.float32, device=like.device)
 
 
-def init(params) -> AdamWState:
+def init(params, shardings=None) -> AdamWState:
+    """Zero moments, full, or with `shardings` (a tree of `NamedSharding`
+    matching `params`) DTensors of this rank's blocks (ZeRO-1)."""
     leaves, treedef = tree_flatten(params)
+    if shardings is not None:
+        shardings, _ = tree_flatten(shardings)
+
+    def zero(i, p):
+        if shardings is None:
+            return torch.zeros(p.shape, dtype=torch.float32,
+                               device=p.device)
+        sl = shardings[i].block(p.shape)
+        local = torch.zeros(p[sl].shape if sl is not None else (0,),
+                            dtype=torch.float32, device=p.device)
+        return shardings[i].distribute(local, p.shape)
 
     def zeros():
-        return treedef.unflatten([torch.zeros(p.shape, dtype=torch.float32,
-                                              device=p.device)
-                                  for p in leaves])
+        return treedef.unflatten([zero(i, p) for i, p in enumerate(leaves)])
     step = torch.zeros((), dtype=torch.int32, device=leaves[0].device)
     return AdamWState(step, zeros(), zeros())
 
@@ -98,6 +120,10 @@ def update(cfg: AdamWConfig, grads, state: AdamWState, params):
     flat_m, _ = tree_flatten(state.mu)
     flat_v, _ = tree_flatten(state.nu)
     for g, m, v, p in zip(flat_g, flat_m, flat_v, flat_p):
+        sharding = ranks.sharding_of(m)
+        if sharding is not None:
+            sl = sharding.block(p.shape)
+            g, m, v, p_full, p = g[sl], m.to_local(), v.to_local(), p, p[sl]
         g = g.to(torch.float32) * scale
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
@@ -105,6 +131,10 @@ def update(cfg: AdamWConfig, grads, state: AdamWState, params):
         p32 = p.to(torch.float32)
         delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) + \
             cfg.weight_decay * p32
-        p.copy_(p32 - lr * delta)
+        if sharding is None:
+            p.copy_(p32 - lr * delta)
+        else:
+            p_full.copy_(ranks.gather_full((p32 - lr * delta).to(p.dtype),
+                                           sharding, p_full.shape))
     return params, AdamWState(step, state.mu, state.nu), {
         "grad_norm": gnorm, "lr": lr}

@@ -1,2 +1,2 @@
 """Run-time support of the port: failure handling and straggler
-mitigation (`fault`)."""
+mitigation (`fault`), re-meshing onto other ranks (`elastic`)."""

@@ -1,1 +1,2 @@
-"""The training step (`step`)."""
+"""The training step (`step`), data-parallel over a mesh of ranks, and
+the GPipe pipeline over a stage axis (`pipeline`)."""

@@ -13,6 +13,24 @@ step writes into the `params` and `opt_state` it is given.
 
 The model's kernels have no gradient: with `use_flash_kernel=True` their
 ops raise under grad mode, and so does the step.
+
+With a `mesh` (a `DeviceMesh` of ranks, `sharding.ranks`) and `rules`,
+the step is data-parallel, what GSPMD makes of the reference's step
+under a batch-sharded mesh, as explicit collectives: each rank gets its
+block of the global batch (the rules' "batch" axes, major first: the
+`TokenPipeline` with `shard_id` = that index and `num_shards` = their
+product), runs the same `grads_of` on it under `use_rules` (statistics
+that couple rows, the MoE load-balance loss, are taken over the whole
+batch there: `ranks.batch_mean`), and the gradients and metrics are
+averaged over the batch axes ("tokens" summed).  Then the compressor,
+and `adamw.update`, which is ZeRO-1 where the moments are sharded
+(`adamw.init(params, opt_shardings(model, mesh, rules))`).  The
+parameters stay full and bitwise equal on every rank.  With
+`accum_steps > 1` the i-th microbatch is, as in the reference, the i-th
+contiguous slice of the global batch, each rank taking its block of it:
+the global token rows are gathered first (a few kilobytes).  Layouts
+whose rules shard anything but the batch over an axis larger than 1
+raise `NotImplementedError` (`axes.check_data_parallel`).
 """
 from __future__ import annotations
 
@@ -23,6 +41,8 @@ import torch
 from ..checkpoint.checkpointer import tree_flatten
 from ..models.api import Model
 from ..optim import adamw
+from ..sharding import axes as ax
+from ..sharding import ranks
 
 
 def _value_and_grad(model: Model, params, batch):
@@ -37,10 +57,26 @@ def _value_and_grad(model: Model, params, batch):
     return loss.detach(), metrics, treedef.unflatten(list(grads))
 
 
+def multi_pod(mesh) -> bool:
+    """Whether `mesh` is a multi-pod mesh: it has a "pod" axis, as
+    `launch.mesh.make_production_mesh(multi_pod=True)` gives it."""
+    return "pod" in mesh.mesh_dim_names
+
+
+def opt_shardings(model: Model, mesh, rules: ax.Rules):
+    """The moments' ZeRO-1 shardings: `opt_rules` of `rules` over the
+    parameters' logical axes, as far as their dimensions divide."""
+    return ax.tree_shardings_matched(
+        model.param_axes(), model.spec, mesh,
+        ax.opt_rules(rules, multi_pod(mesh)))
+
+
 def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
-                    accum_steps: int = 1, compressor=None) -> Callable:
+                    accum_steps: int = 1, compressor=None, mesh=None,
+                    rules: ax.Rules | None = None) -> Callable:
     """Returns train_step(params, opt_state, batch) →
-    (params, opt_state, metrics)."""
+    (params, opt_state, metrics); data-parallel over `mesh` under
+    `rules` when they are given (the module docstring)."""
 
     def grads_of(params, batch):
         if accum_steps <= 1:
@@ -62,12 +98,61 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
         return loss, {"loss": loss}, treedef.unflatten(
             [g.div_(n) for g in gacc])
 
-    def train_step(params, opt_state, batch):
-        loss, metrics, grads = grads_of(params, batch)
+    if mesh is None:
+        def train_step(params, opt_state, batch):
+            loss, metrics, grads = grads_of(params, batch)
+            if compressor is not None:
+                grads, opt_state = compressor(grads, opt_state)
+            params, opt_state, opt_metrics = adamw.update(
+                opt_cfg, grads, opt_state, params)
+            return params, opt_state, {**metrics, **opt_metrics}
+        return train_step
+
+    if rules is None:
+        raise ValueError("a mesh without rules")
+    ax.check_data_parallel(rules, mesh)
+    rows = ax.NamedSharding(mesh, ax.P(ax.batch_axes(rules)))
+    group, n = ranks.axis_group(mesh, ax.batch_axes(rules))
+
+    def microbatch_order(batch):
+        """This rank's rows of each global microbatch, in order."""
+        if accum_steps <= 1 or n == 1:
+            return batch
+        out = {}
+        for k, v in batch.items():
+            b = v.shape[0]
+            if b % accum_steps:
+                raise ValueError(f"{b} rows per rank do not split into "
+                                 f"{accum_steps} microbatches")
+            full = ranks.gather_full(v, rows, (n * b,) + v.shape[1:])
+            m, w = n * b // accum_steps, b // accum_steps
+            k0 = rows.block((n * b,))[0].start // b
+            out[k] = torch.cat([full[i * m + k0 * w: i * m + (k0 + 1) * w]
+                                for i in range(accum_steps)])
+        return out
+
+    def average(metrics, grads):
+        if n == 1:
+            return metrics, grads
+        flat, treedef = tree_flatten(grads)
+        for g in flat:
+            ranks.all_sum_(g, group).div_(
+                torch.full((), n, dtype=g.dtype, device=g.device))
+        keys = sorted(metrics)
+        vec = ranks.all_sum_(torch.stack([metrics[k].to(torch.float32)
+                                          for k in keys]), group)
+        div = torch.tensor([1.0 if k == "tokens" else float(n)
+                            for k in keys], device=vec.device)
+        return dict(zip(keys, vec / div)), treedef.unflatten(flat)
+
+    def dp_train_step(params, opt_state, batch):
+        with ax.use_rules(rules, mesh):
+            _, metrics, grads = grads_of(params, microbatch_order(batch))
+        metrics, grads = average(metrics, grads)
         if compressor is not None:
             grads, opt_state = compressor(grads, opt_state)
         params, opt_state, opt_metrics = adamw.update(
             opt_cfg, grads, opt_state, params)
         return params, opt_state, {**metrics, **opt_metrics}
 
-    return train_step
+    return dp_train_step

@@ -798,6 +798,57 @@ def test_train_steps_on_the_card_match_the_cpu(cuda, arch):
         assert float((gap > 1e-2).float().mean()) <= 1e-3
 
 
+# ---- training over several ranks: two gloo ranks sharing the card ----
+
+def test_two_gloo_ranks_on_the_card_match_the_cpu_ranks(cuda):
+    """`compressed_psum` over two gloo ranks on card 0, bitwise the same
+    call on two CPU ranks; qwen3's smoke model through three data-parallel
+    steps (accum 1, accum 2, the EF compressor; ZeRO-1 moments) on the
+    same ranks: the card's ranks end with bitwise equal parameters, and
+    the card against the CPU ranks keeps
+    `test_train_steps_on_the_card_match_the_cpu`'s tolerances."""
+    import torch_dp_workers as W
+    from repro_torch.checkpoint.checkpointer import tree_flatten
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models.api import build_model
+    from repro_torch.models.params import leaves, unflatten
+    from repro_torch.sharding.ranks import spawn_ranks
+    model = build_model(get_smoke_config("qwen3-1.7b"), "cpu")
+    flat = tree_flatten(model.init(torch.Generator().manual_seed(0),
+                                   torch.float32))[0]
+    start = unflatten((path, t.numpy()) for (path, _), t in
+                      zip(leaves(model.spec), flat))
+    card = spawn_ranks(W.card_rank, 2, "gloo", "cuda:0", (start,))
+    host = spawn_ranks(W.card_rank, 2, "gloo", "cpu", (start,))
+    for c, h in zip(card, host):
+        assert c["psum"].numpy().tobytes() == h["psum"].numpy().tobytes()
+    lr_sum = 0.0
+    for step in range(3):
+        a, b = card[0]["dp"][step], card[1]["dp"][step]
+        assert all(torch.equal(x, y) for x, y in zip(a["params"],
+                                                     b["params"]))
+        h = host[0]["dp"][step]
+        lr_sum += h["metrics"]["lr"]
+        assert a["metrics"]["loss"] == pytest.approx(h["metrics"]["loss"],
+                                                     rel=1e-5)
+        assert a["metrics"]["grad_norm"] == pytest.approx(
+            h["metrics"]["grad_norm"], rel=1e-3 if step == 2 else 1e-4)
+        tol = 2e-2 if step == 2 else 1e-3
+        for which in ("mu", "nu"):           # each leaf: both ranks' blocks
+            for i in range(len(h[which])):
+                blocks = [(card[r]["dp"][step][which][i],
+                           host[r]["dp"][step][which][i]) for r in (0, 1)]
+                largest = max(float(y.abs().max()) for _, (y, _, _) in blocks)
+                for (x, _, bx), (y, _, by) in blocks:
+                    assert bx == by
+                    assert float((x - y).abs().max()) <= tol * max(largest,
+                                                                   1e-30)
+        gap = torch.cat([(x - y).abs().flatten() for x, y in
+                         zip(a["params"], h["params"])]) / lr_sum
+        assert float(gap.max()) <= 0.5
+        assert float((gap > 1e-2).float().mean()) <= 1e-3
+
+
 # ---- the model zoo: qwen3-14b, phi4-mini, nemotron, moonshot, Jamba ----
 
 ZOO_ARCHS = ("qwen3-14b", "phi4-mini-3.8b", "nemotron-4-15b",

@@ -42,7 +42,10 @@ def test_port_imports_neither_jax_nor_repro():
             "import repro_torch.core.sweep, repro_torch.convert, "
             "repro_torch.kernels.placement_score.ops, "
             "repro_torch.core.scenarios, repro_torch.core.payoff, "
-            "repro_torch.core.calibration; "
+            "repro_torch.core.calibration, repro_torch.sharding.ranks, "
+            "repro_torch.train.step, repro_torch.train.pipeline, "
+            "repro_torch.runtime.elastic, repro_torch.launch.mesh, "
+            "repro_torch.optim.compression, repro_torch.models.api; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); "
             "sys.exit(1 if bad else 0)")
