@@ -105,7 +105,8 @@ read just after:
   losses, ms per step, tokens/s, peak memory and a profiled step;
 * training over several ranks (`dp_train_path`, one process per rank
   through `repro_torch.sharding.ranks.spawn_ranks`): the same
-  Qwen3-1.7B and global batch, 5 data-parallel steps under
+  Qwen3-1.7B at 14 of its layers and global batch, 3 data-parallel
+  steps under
   `pure_dp_rules(False)` with ZeRO-1 moments, over two gloo ranks
   sharing card 0 and, where several cards are visible, one NCCL rank
   per card; ms per step, tokens/s, peak memory per rank, rank 0's idle
@@ -114,6 +115,19 @@ read just after:
   size on the same ranks, `compressed_psum` card against CPU (bitwise),
   a pipeline of one stage per rank against the sequential stack, and
   `reshard` onto one survivor (bitwise);
+* tensor and expert parallelism over "model" (`tp_train_path`, the same
+  rank sets on a (1, W/2, 2) mesh, `base_rules(False)` with ZeRO-1
+  moments, each rank holding its blocks): Qwen3-1.7B at full width and
+  14 layers, bf16, 3 steps of the same global batch, and granite-moe at
+  full width and 4 layers, float32, 2 steps; first a scoring call with flash on each
+  rank's heads (flash once per layer per rank, gating_topk once per MoE
+  layer), then the steps; ms per step, rank 0's idle share, peak per
+  rank against the one-process step's, the collectives' bytes per step,
+  the first step's loss and gradient norm and the parameters after it
+  against the one-process step on the same rows, replicated leaves
+  bitwise equal across ranks; then, at smoke size, `fsdp_rules` and the
+  K/V-head fallback, card ranks against CPU ranks; and flash alone at a
+  rank's shape (H 8, Hk 4, B 4, S 4096) beside SDPA;
 * the model zoo, each configuration at its published widths with bf16
   weights drawn from a generator seeded with 0: the smoke goldens of
   qwen3-14b, phi4-mini-3.8b, nemotron-4-15b, moonshot-v1-16b-a3b and
@@ -141,6 +155,7 @@ before it names the card and its power limit as `nvidia-smi` gives them,
 and one line before that lists each kernel with its launches, error,
 times and bound.
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -3806,10 +3821,11 @@ def training_section(dev, timings):
 # collectives, the pipeline and resharding at smoke size on the same ranks
 # ---------------------------------------------------------------------------
 
-# Qwen3-1.7B at full width and depth, as TRAIN_MAIN, the global batch of
-# 8 x 256 split over the ranks, 5 steps under pure_dp_rules(False), whose
+# Qwen3-1.7B at full width and 14 of its 28 layers (28 and 5 steps until
+# the tensor-parallel path came), the global batch of 8 x 256 split over
+# the ranks, 3 steps under pure_dp_rules(False), whose
 # opt_rules shard the moments over "data" (ZeRO-1)
-DP_MAIN = dict(batch=8, seq=256, lr=3e-3, steps=5)
+DP_MAIN = dict(batch=8, seq=256, lr=3e-3, steps=3, layers=14)
 DP_NAMES = ("pod", "data", "model")
 # The first step's loss against the one-process step on the same
 # (concatenated) global batch.  Both run the same bf16 model on the same
@@ -3932,6 +3948,7 @@ def dp_train_rank(rank, world, dev):
     import contextlib
     import gc
     import statistics
+    from dataclasses import replace
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -3948,7 +3965,7 @@ def dp_train_rank(rank, world, dev):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     counters = kernel_counters()
-    cfg = get_config("qwen3-1.7b")
+    cfg = replace(get_config("qwen3-1.7b"), n_layers=DP_MAIN["layers"])
     B, S, steps = DP_MAIN["batch"], DP_MAIN["seq"], DP_MAIN["steps"]
     mesh = make_test_mesh((1, world, 1), DP_NAMES, dev.type)
     rules = ax.pure_dp_rules(False)
@@ -4056,7 +4073,8 @@ def dp_train_path(timings):
             "grad_norm"]
         losses = [h["loss"] for h in r0["history"]]
         tokens = B * S * steps
-        print(f"dp train path ({label}): Qwen3-1.7B full width and depth, "
+        print(f"dp train path ({label}): Qwen3-1.7B full width, "
+              f"{DP_MAIN['layers']} layers, "
               f"global batch {B} x {S}, {steps} steps, pure_dp_rules(False) "
               f"with ZeRO-1 moments; losses {[round(v, 4) for v in losses]}")
         for r, rr in enumerate(res):
@@ -4097,6 +4115,535 @@ def dp_train_path(timings):
         if not ok:
             raise AssertionError(f"dp train path ({label}) failed its checks")
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# tensor and expert parallelism over "model", and FSDP: the loss and the
+# train step on each rank's blocks
+# ---------------------------------------------------------------------------
+
+# Each arch at full width under base_rules(False) on (1, W/2, 2) with
+# opt_rules' ZeRO-1 moments, remat "full", the global batch 8 x 256:
+# Qwen3-1.7B at 14 of its 28 layers (the serving paths' depth), 3 steps,
+# bf16; granite-moe at 4 of 24, 2 steps (E 32 over 2 ranks, its router's
+# gathered logits, vocab 49155 replicated: it does not divide), float64.
+# At this random init on the Zipf batch granite's gradient follows its
+# near-tied top-k routes, so any rounding moves it: on an H100 80GB HBM3
+# at 700 W `probes/tp_grads.py` read, in float32, 8 of 2056 token rows
+# of layer 3 rerouted and each leaf's gradient 14-42% from one
+# process's (15-48% at capacity factor E/k, where no choice is dropped;
+# ±1e-6 on one leaf moved them 7-13%), while in float64 the routes agree
+# and every leaf lies within 2.8e-7 of one process's.  So granite trains
+# in float64, where its gradients are gated per leaf (TP_LEAF_RTOL).
+# Its TP scoring call, whose flash takes bf16 and float32, runs on
+# float32 weights from the same seed.
+TP_MAIN = {"qwen3-1.7b": dict(layers=14, steps=3, dtype="bfloat16"),
+           "granite-moe-1b-a400m": dict(layers=4, steps=2, dtype="float64")}
+TP_BATCH = (8, 256)
+# warmup 1: step 1 updates at the full lr, above a bf16 ulp for most
+# weights (lr 3e-3 made Qwen3's losses climb on the same H100 80GB HBM3
+# at 700 W: 12.69, 14.79, 20.69)
+TP_OPT = dict(lr=3e-4, warmup_steps=1)
+# The first step's loss and grad_norm against the one-process step on the
+# same global batch, same card, bf16: the ranks sum their heads' and MLP
+# columns' partial products in bf16 before the reduce-scatter, where one
+# device sums them inside one product (DP_LOSS_RTOL's reasoning); the
+# gradient norm sums 1.3e9 such squares.
+TP_LOSS_RTOL, TP_GRAD_NORM_RTOL = 1e-3, 1e-2
+# Each leaf's gradient as the step hands it to AdamW against one
+# process's, |tp - one| / |one|, in float64, where roundings leave the
+# routes alone: the forward's float32 casts (router logits, the norms'
+# statistics, RoPE, the cross-entropy's logits) round the two sides'
+# float64 sums apart by ~6e-8, and `probes/tp_grads.py` read at most
+# 2.8e-7 (H100 80GB HBM3, 700 W); a wrong block or gradient is O(1).
+TP_LEAF_RTOL = {"float64": 1e-5}
+# After step 1 each parameter element against the one-process step's, in
+# units of lr beyond two ulps of the element in its type (each side's
+# store rounds once): Adam's first update is lr·(sign(g) + wd·p) wherever
+# |g| >> eps, so this reads the gradients' signs, and two runs from the
+# same init differ by at most about 2·lr whatever their gradients.  A
+# sign that differs moves an element by up to 2·lr: the bf16 sums do so
+# to gradients within their rounding of 0, on a few elements of a leaf
+# (Qwen3: 2.6e-3 of a leaf), where a rank's block of a wrong or lost
+# gradient moves about half of its leaf (`probes/tp_share.py`).  So in
+# every leaf a share of at most TP_PARAM_SHARE beyond PARAM_TOL's
+# 1e-2·lr.
+TP_PARAM_SHARE = 5e-2
+# The TP scoring call with the kernels (flash on each rank's heads, the
+# gating kernel on the gathered router logits) against the same call on
+# the same blocks with the plain attention and router: float32 within
+# 1e-4 (a near-tied route that rounds the other way moves granite's
+# float32 loss by ~1.5e-5: its one-process and two-rank scoring calls),
+# bf16 within TP_LOSS_RTOL by its reasoning.
+TP_FLASH_RTOL = {"float32": 1e-4, "bfloat16": TP_LOSS_RTOL}
+# The smoke checks, card ranks against CPU ranks in float32: the loss
+# within 1e-5, `grad_norm` 1e-4, each moment leaf within MOMENT_TOL of its
+# largest element, and at most PARAM_TOL's share of the parameters beyond
+# 1e-2·lr (the same sign flips: on the same card granite's FSDP step put
+# one element 0.65·lr apart, a float32 gradient within its rounding of 0)
+TP_SMOKE_PARAM_TOL = dict(most=1e-2, share=1e-3)
+TP_SMOKE_MOMENT_TOL = 1e-3
+
+
+def tp_layouts():
+    """(backend, device, ranks): two gloo ranks sharing card 0, and one
+    NCCL rank per card where an even number of cards is visible (gloo
+    beside it for the CPU meshes of `tp_smoke_checks`)."""
+    import torch
+    out = [("gloo", "cuda:0", 2)]
+    n = torch.cuda.device_count()
+    if n > 1 and n % 2 == 0:
+        out.append(("cpu:gloo,cuda:nccl", "cuda", n))
+    return out
+
+
+def tp_param_gaps(params, ref, lr):
+    """(the largest share of a leaf's elements beyond 1e-2·lr, that
+    leaf's index) of each rank's gathered parameter blocks against rank
+    0's one-process parameters `ref` (None elsewhere), in units of lr
+    beyond two ulps of the one-process element in its type."""
+    import torch
+    from repro_torch.checkpoint.checkpointer import tree_flatten
+    from repro_torch.sharding import ranks
+    share, which = 0.0, None
+    for i, p in enumerate(tree_flatten(params)[0]):
+        full = ranks.gather_dtensor(p)
+        if ref is None:
+            continue
+        want = ref[i].float()
+        ulps = 2 * torch.finfo(ref[i].dtype).eps * want.abs()
+        gap = torch.clamp_min((full.float() - want).abs() - ulps, 0) / lr
+        over = float((gap > 1e-2).float().mean())
+        if over > share:
+            share, which = over, i
+        del full, want, ulps, gap
+    return share, which
+
+
+def tp_leaf_gaps(model, mesh, rules, grads, ref):
+    """{leaf: |g - ref| / |ref|} of the gradients the sharded step handed
+    AdamW (`grads`, flat, each rank's blocks, gathered here) against the
+    one-process step's `ref` (flat, rank 0; None elsewhere, which gets
+    {})."""
+    from repro_torch.checkpoint.checkpointer import tree_flatten
+    from repro_torch.models.params import leaves
+    from repro_torch.sharding import axes as ax
+    from repro_torch.sharding import ranks
+    sizes = ax.axis_sizes(mesh)
+    out = {}
+    for i, ((path, pd), g, s) in enumerate(zip(
+            leaves(model.spec), grads,
+            tree_flatten(model.param_shardings(mesh, rules))[0])):
+        if any(sizes[a] > 1 for e in s.spec for a in ax._names(e)):
+            g = ranks.gather_full(g, s, pd.shape)
+        if ref is not None:
+            want = ref[i].double()
+            out[path] = float((g.double() - want).norm()
+                              / want.norm().clamp_min(1e-300))
+    return out
+
+
+@contextlib.contextmanager
+def kept_grads(store):
+    """While active, each gradient tree that a train step hands
+    `adamw.update` is appended to `store`, flat."""
+    from repro_torch.checkpoint.checkpointer import tree_flatten
+    from repro_torch.optim import adamw
+    orig = adamw.update
+
+    def spy(cfg, grads, state, params):
+        store.append(tree_flatten(grads)[0])
+        return orig(cfg, grads, state, params)
+    adamw.update = spy
+    try:
+        yield store
+    finally:
+        adamw.update = orig
+
+
+def tp_arch_run(arch, rank, world, dev, mesh, rules, counters):
+    """One arch of `tp_train_rank`: on rank 0 the one-process scoring
+    call (flash) and train step on the same rows, from the same seed;
+    then on every rank the tensor-parallel scoring call on its blocks,
+    with the kernels (launches counted) and with the plain attention and
+    router, `TP_MAIN[arch]`'s steps (the last profiled on rank 0, the
+    collectives' bytes per step counted), the gradients of step 1 per
+    leaf against the one-process step's where `TP_LEAF_RTOL` names the
+    type, the parameters after step 1 against the one-process step's,
+    the replicated leaves' bits across the ranks."""
+    import gc
+    import statistics
+    from dataclasses import replace
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.checkpoint.checkpointer import tree_flatten
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import axes as ax
+    from repro_torch.sharding import ranks
+    from repro_torch.train.step import make_train_step, opt_shardings
+    steps = TP_MAIN[arch]["steps"]
+    dtype = getattr(torch, TP_MAIN[arch]["dtype"])
+    # flash takes bf16 and float32
+    score_dtype = torch.float32 if dtype == torch.float64 else dtype
+    leaf_rtol = TP_LEAF_RTOL.get(TP_MAIN[arch]["dtype"])
+    cfg = replace(get_config(arch), n_layers=TP_MAIN[arch]["layers"])
+    B, S = TP_BATCH
+    n_data = ax.axis_sizes(mesh)["data"]
+    k = mesh.get_coordinate()[1]
+    pipe = TokenPipeline(PipelineConfig(B, S, cfg.vocab))
+    glob = [pipe._batch_at(s) for s in range(steps)]
+
+    def mine(step):
+        w = B // n_data
+        return {"tokens": torch.as_tensor(glob[step][k * w:(k + 1) * w],
+                                          device=dev)}
+
+    def seed():
+        return torch.Generator(device=dev).manual_seed(0)
+    model = build_model(cfg, dev)
+    scorer = build_model(replace(cfg, use_flash_kernel=True), dev)
+    opt_cfg = adamw.AdamWConfig(**TP_OPT)
+    out = {"score_dtype": str(score_dtype).removeprefix("torch.")}
+    ref = one_grads = None
+    if rank == 0:       # one process, the same weights and rows
+        w = model.init(seed(), score_dtype)
+        with torch.no_grad():
+            out["one_score"] = float(scorer.loss(w, mine(0))[0])
+        del w
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        full = model.init(seed(), dtype)
+        base = torch.cuda.memory_allocated()
+        kept = []
+        with (kept_grads(kept) if leaf_rtol else contextlib.nullcontext()):
+            full, opt1, met = make_train_step(model, opt_cfg)(
+                full, adamw.init(full), mine(0))
+        torch.cuda.synchronize()
+        out["one_process"] = {k_: float(met[k_]) for k_ in
+                              ("loss", "grad_norm", "lr")}
+        out["one_peak_gib"] = (torch.cuda.max_memory_allocated()
+                               - base) / 2 ** 30
+        ref = tree_flatten(full)[0]
+        one_grads = kept[0] if kept else None
+        del opt1, met, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    shardings = model.param_shardings(mesh, rules)
+    w = model.init(seed(), score_dtype, shardings)
+    for c in counters.values():
+        c.launches = 0
+    with ax.use_rules(rules, mesh), torch.no_grad():
+        out["tp_score"] = float(scorer.loss(w, mine(0))[0])
+        out["score_launches"] = {n: c.launches for n, c in counters.items()}
+        out["tp_plain_score"] = float(model.loss(w, mine(0))[0])
+    del w
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    params = model.init(seed(), dtype, shardings)
+    out["param_gib"] = (torch.cuda.memory_allocated() - held) / 2 ** 30
+    opt = adamw.init(params, opt_shardings(model, mesh, rules))
+    step_fn = make_train_step(model, opt_cfg, mesh=mesh, rules=rules)
+    base = torch.cuda.memory_allocated()
+    for c in counters.values():
+        c.launches = 0
+    walls, history, traffic = [], [], []
+    dist.barrier()
+    t_all = time.perf_counter()
+    for step in range(steps):
+        profiled = rank == 0 and step == steps - 1
+        kept = []
+        ranks.traffic.clear()
+        with (profile(activities=[ProfilerActivity.CUDA]) if profiled
+              else contextlib.nullcontext()) as prof, \
+                (kept_grads(kept) if leaf_rtol and step == 0
+                 else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            params, opt, met = step_fn(params, opt, mine(step))
+            history.append({k_: float(v) for k_, v in met.items()})
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        traffic.append(dict(ranks.traffic))
+        if step == 0:
+            out["param_gap"] = tp_param_gaps(params, ref,
+                                             history[0]["lr"])
+            if leaf_rtol:
+                out["leaf_gaps"] = tp_leaf_gaps(model, mesh, rules,
+                                                kept[0], one_grads)
+            ref = one_grads = None
+        del kept
+    wall = time.perf_counter() - t_all
+    walls_steady = walls[1:] if len(walls) > 1 else walls
+    out.update(walls=walls, wall=wall, history=history, traffic=traffic,
+               peak_gib=(torch.cuda.max_memory_allocated() - held)
+               / 2 ** 30,
+               opt_gib=(base - held) / 2 ** 30 - out["param_gib"],
+               launches={n: c.launches for n, c in counters.items()},
+               median_ms=statistics.median(walls_steady) * 1e3)
+    if rank == 0:
+        busy, by_name = device_activity(prof)
+        out.update(prof_wall=walls[-1], busy=busy, top=sorted(
+            ((n, c, t) for n, (c, t) in by_name.items()),
+            key=lambda e: -e[2])[:6])
+    flat = tree_flatten(params)[0]
+    wide = [i for i, p in enumerate(flat) if any(
+        ax.axis_sizes(mesh)[a] > 1 for e in ranks.sharding_of(p).spec
+        for a in ax._names(e))]
+    sums = torch.stack([torch.stack((
+        p.to_local().view(torch.int16).sum(dtype=torch.int64),
+        p.to_local().view(torch.int16).flatten()[1::7].sum(
+            dtype=torch.int64)))
+        for i, p in enumerate(flat) if i not in wide]).flatten()
+    hi = ranks.all_max_(sums.clone())
+    lo = -ranks.all_max_(-sums)
+    out["replicated_equal"] = bool(torch.equal(hi, lo))
+    out["n_sharded"] = len(wide)
+    out["n_leaves"] = len(flat)
+    del params, opt, step_fn, flat
+    return out
+
+
+def tp_kernel_checks(dev):
+    """The kernels at the shapes the tensor-parallel scoring call gives
+    them on each rank of (1, 1, 2) (the global batch's 8 rows of 257
+    tokens, half the heads): flash for Qwen3 (H 8, Hk 4, hd 128, bf16)
+    and granite-moe (H 8, Hk 4, hd 64, float32), causal, and gating on
+    granite's gathered router logits (N 2056, E 32, k 8), each against
+    its plain version (`check_flash_case`, `check_gating_case`).
+    Returns each one's max abs error."""
+    import torch
+    B, S = TP_BATCH
+    S += 1              # the pipeline's rows hold S + 1 tokens
+    return {"flash B 8 S 257 H 8 Hk 4 hd 128 bf16": check_flash_case(
+                dev, B, S, 8, 4, 128, torch.bfloat16, True, 18),
+            "flash B 8 S 257 H 8 Hk 4 hd 64 float32": check_flash_case(
+                dev, B, S, 8, 4, 64, torch.float32, True, 19),
+            "gating N 2056 E 32 k 8": check_gating_case(
+                dev, B * S, 32, 8, 120)}
+
+
+def tp_smoke_checks(rank, world, dev):
+    """At smoke size on the phase's ranks, float32, TF32 off, one step
+    from the same init on the card's ranks and on a mesh of the same
+    ranks on the CPU (gloo), card against CPU (`TP_SMOKE_PARAM_TOL`): `fsdp_rules(base_rules(
+    False))` on (1, W, 1) (FSDP over every rank) for qwen3 and
+    granite-moe, and qwen3 with one K/V head under `base_rules(False)` on
+    (1, 1, W) (kv_heads replicated, each rank's q heads reading it)."""
+    from dataclasses import replace
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import axes as ax
+    from repro_torch.sharding import ranks
+    from repro_torch.checkpoint.checkpointer import tree_flatten
+    from repro_torch.train.step import make_train_step, opt_shardings
+    cases = [("fsdp", "qwen3-1.7b", (1, world, 1),
+              ax.fsdp_rules(ax.base_rules(False), False), {}),
+             ("fsdp", "granite-moe-1b-a400m", (1, world, 1),
+              ax.fsdp_rules(ax.base_rules(False), False), {}),
+             ("kv fallback", "qwen3-1.7b", (1, 1, world),
+              ax.base_rules(False), {"n_kv_heads": 1})]
+    out = []
+    for name, arch, shape, rules, changes in cases:
+        cfg = replace(get_smoke_config(arch), remat="full", **changes)
+        tokens = np.random.default_rng(3).integers(0, cfg.vocab, (8, 32))
+        got = []
+        for d in (dev, torch.device("cpu")):
+            mesh = make_test_mesh(shape, DP_NAMES, d.type)
+            model = build_model(cfg, d)
+            params = model.init(torch.Generator().manual_seed(0),
+                                torch.float32,
+                                model.param_shardings(mesh, rules))
+            n = 1
+            for a in ax.batch_axes(rules):
+                n *= ax.axis_sizes(mesh)[a]
+            k = mesh.get_coordinate()[1]
+            opt = adamw.init(params, opt_shardings(model, mesh, rules))
+            params, opt, met = make_train_step(
+                model, adamw.AdamWConfig(lr=1e-2, warmup_steps=2),
+                mesh=mesh, rules=rules)(params, opt, {
+                    "tokens": torch.as_tensor(
+                        tokens[k * 8 // n:(k + 1) * 8 // n], device=d)})
+            got.append((
+                {k_: float(v) for k_, v in met.items()},
+                [ranks.gather_dtensor(p).cpu()
+                 for p in tree_flatten(params)[0]],
+                [p.to_local().numel() < p.numel()
+                 for p in tree_flatten(params)[0]],
+                [ranks.gather_dtensor(m).cpu()
+                 for m in tree_flatten(opt.mu)[0]]))
+        (mc, pc, sc, uc), (mh, ph, _, uh) = got
+        lr = mh["lr"]
+        gap = torch.cat([(a - b).abs().flatten() for a, b in
+                         zip(pc, ph)]) / lr
+        out.append(dict(
+            name=f"{name} {arch} {shape}",
+            loss_gap=abs(mc["loss"] - mh["loss"]) / abs(mh["loss"]),
+            norm_gap=abs(mc["grad_norm"] - mh["grad_norm"])
+            / mh["grad_norm"],
+            moment_gap=max(float((a - b).abs().max())
+                           / max(float(b.abs().max()), 1e-30)
+                           for a, b in zip(uc, uh)),
+            param_share=float((gap > TP_SMOKE_PARAM_TOL["most"])
+                              .float().mean()),
+            n_sharded=sum(sc)))
+    return out
+
+
+def tp_train_rank(rank, world, dev):
+    """One rank of `tp_train_path`: `tp_arch_run` for each arch of
+    `TP_MAIN` under `base_rules(False)` on (1, W/2, 2), then
+    `tp_smoke_checks`.  Returns numbers only."""
+    import gc
+    import torch
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.sharding import axes as ax
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = kernel_counters()
+    mesh = make_test_mesh((1, world // 2, 2), DP_NAMES, dev.type)
+    rules = ax.base_rules(False)
+    out = {}
+    for arch in TP_MAIN:
+        out[arch] = tp_arch_run(arch, rank, world, dev, mesh, rules,
+                                counters)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["smoke"] = tp_smoke_checks(rank, world, dev)
+    return out
+
+
+def tp_train_path(timings):
+    """Qwen3-1.7B and granite-moe trained tensor- and expert-parallel on
+    each of `tp_layouts`' rank sets (`spawn_ranks`, one process per rank),
+    with the smoke checks beside them; fails on any rank's error or failed
+    check.  Returns the flash launches of each TP scoring call, per rank."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.sharding.ranks import spawn_ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    B, S = TP_BATCH
+    launches = {}
+    for backend, device, world in tp_layouts():
+        label = (f"{backend}, {world} ranks on "
+                 + (device if ":" in device else f"{world} cards")
+                 + f", mesh (1, {world // 2}, 2)")
+        t0 = time.perf_counter()
+        res = spawn_ranks(tp_train_rank, world, backend, device)
+        secs = time.perf_counter() - t0
+        ok = True
+        for arch, spec in TP_MAIN.items():
+            r0 = res[0][arch]
+            steps, layers = spec["steps"], spec["layers"]
+            first, one = r0["history"][0], r0["one_process"]
+            gap = abs(first["loss"] - one["loss"]) / abs(one["loss"])
+            norm_gap = abs(first["grad_norm"] - one["grad_norm"]) / one[
+                "grad_norm"]
+            score_gap = abs(r0["tp_score"] - r0["one_score"]) / abs(
+                r0["one_score"])
+            share, which = r0["param_gap"]
+            flash_gap = abs(r0["tp_score"] - r0["tp_plain_score"]) / abs(
+                r0["tp_plain_score"])
+            score_dtype = r0["score_dtype"]
+            flash_tol = TP_FLASH_RTOL[score_dtype]
+            leaf_gaps = r0.get("leaf_gaps")
+            losses = [h["loss"] for h in r0["history"]]
+            print(f"tp train path ({label}): {arch} full width, {layers} "
+                  f"layers, {spec['dtype']}, global batch {B} x {S}, "
+                  f"{steps} steps, "
+                  f"base_rules(False) with ZeRO-1 moments, remat full; "
+                  f"losses {[round(v, 4) for v in losses]}")
+            for r, rr in enumerate(res):
+                a = rr[arch]
+                per = ", ".join(f"{n} {b / 2 ** 20:.1f} MiB"
+                                for n, b in sorted(a["traffic"][-1].items()))
+                print(f"  rank {r}: steps "
+                      f"{[round(w * 1e3, 1) for w in a['walls']]} ms; peak "
+                      f"allocated {a['peak_gib']:.2f} GiB above what the "
+                      f"rank held (its blocks {a['param_gib']:.2f} GiB,"
+                      f" moments {a['opt_gib']:.2f} GiB) against the "
+                      f"one-process step's {r0['one_peak_gib']:.2f} GiB "
+                      f"above its parameters; collectives per step {per}; "
+                      f"{a['n_sharded']} of {a['n_leaves']} leaves sharded;"
+                      f" replicated leaves bitwise equal across ranks "
+                      f"{a['replicated_equal']}; flash launches in the TP "
+                      f"scoring call {a['score_launches']['flash_attention']}"
+                      f", gating {a['score_launches']['gating_topk']}; "
+                      f"kernel launches in training {a['launches']}")
+            for name, calls, t in r0["top"]:
+                print(f"  device {t:8.4f} s {calls:8d} calls  {name[:90]}")
+            if leaf_gaps is not None:
+                print(f"  step 1's gradient per leaf against the one-process "
+                      f"step's, |tp - one| / |one| (gated at "
+                      f"{TP_LEAF_RTOL[spec['dtype']]}): " + ", ".join(
+                          f"{n} {v:.3e}" for n, v in leaf_gaps.items()))
+            print(f"tp train path ({label}) {arch}: step 1 "
+                  f"{r0['walls'][0] * 1e3:.1f} ms, steps 2-{steps} median "
+                  f"{r0['median_ms']:.1f} ms; {B * S * steps / r0['wall']:,.0f}"
+                  f" tokens/s; rank 0's profiled step {steps} "
+                  f"{r0['prof_wall'] * 1e3:.1f} ms wall, device busy "
+                  f"{r0['busy'] * 1e3:.1f} ms, idle share "
+                  f"{1 - r0['busy'] / r0['prof_wall']:.3f}; first-step loss "
+                  f"{first['loss']:.6f} against the one-process step's "
+                  f"{one['loss']:.6f} (relative {gap:.3e}, gated at "
+                  f"{TP_LOSS_RTOL}), grad_norm {first['grad_norm']:.6f} "
+                  f"against {one['grad_norm']:.6f} (relative "
+                  f"{norm_gap:.3e}, gated at {TP_GRAD_NORM_RTOL}); after "
+                  f"step 1 at most {share:.2e} of a leaf's elements beyond "
+                  f"1e-2·lr (leaf {which}, gated at {TP_PARAM_SHARE}); the "
+                  f"TP scoring call ({score_dtype}) with flash "
+                  f"{r0['tp_score']:.6f} against one process's "
+                  f"{r0['one_score']:.6f} (relative {score_gap:.3e}, gated "
+                  f"at {TP_LOSS_RTOL}) and against the plain attention and "
+                  f"router on the same blocks {r0['tp_plain_score']:.6f} "
+                  f"(relative {flash_gap:.3e}, gated at {flash_tol})")
+            ok &= (gap <= TP_LOSS_RTOL and score_gap <= TP_LOSS_RTOL
+                   and flash_gap <= flash_tol
+                   and norm_gap <= TP_GRAD_NORM_RTOL
+                   and share <= TP_PARAM_SHARE
+                   and all(np.isfinite(losses)))
+            if spec["dtype"] in TP_LEAF_RTOL:
+                ok &= (leaf_gaps is not None and len(leaf_gaps) == r0[
+                    "n_leaves"] and max(leaf_gaps.values())
+                    <= TP_LEAF_RTOL[spec["dtype"]])
+            for rr in res:
+                a = rr[arch]
+                want = {"flash_attention": layers,
+                        "gating_topk": layers if "moe" in arch else 0}
+                ok &= (a["replicated_equal"] and a["n_sharded"] > 0
+                       and all(a["score_launches"][n] == v
+                               for n, v in want.items())
+                       and not any(a["launches"].values()))
+            launches[f"{arch} {backend}"] = [
+                rr[arch]["score_launches"]["flash_attention"] for rr in res]
+        for c in res[0]["smoke"]:
+            print(f"tp smoke check ({label}) {c['name']}: card against CPU "
+                  f"ranks, loss {c['loss_gap']:.2e}, grad_norm "
+                  f"{c['norm_gap']:.2e}, first moments within "
+                  f"{c['moment_gap']:.2e} of each leaf's largest, "
+                  f"{c['param_share']:.2e} of the parameters beyond "
+                  f"1e-2·lr; {c['n_sharded']} leaves sharded")
+            ok &= (c["loss_gap"] <= 1e-5 and c["norm_gap"] <= 1e-4
+                   and c["moment_gap"] <= TP_SMOKE_MOMENT_TOL
+                   and c["param_share"] <= TP_SMOKE_PARAM_TOL["share"]
+                   and c["n_sharded"] > 0)
+        print(f"tp train path ({label}): {secs:.1f} s")
+        timings[f"tp train {backend}"] = secs
+        if not ok:
+            raise AssertionError(f"tp train path ({label}) failed its "
+                                 "checks")
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -5131,6 +5678,12 @@ def main():
     training_section(dev, timings)
     torch.cuda.empty_cache()
     dp_train_path(timings)
+    t0 = time.perf_counter()
+    tp_launches = tp_train_path(timings)
+    tp_flash = flash_zoo_shape(dev, 8, 4, seed=17)
+    tp_kernels = tp_kernel_checks(dev)
+    timings["tp kernel shapes"] = time.perf_counter() - t0 - sum(
+        v for k, v in timings.items() if k.startswith("tp train"))
     zoo = zoo_section(dev, timings)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in timings.items())
@@ -5163,13 +5716,18 @@ def main():
              replaces="src/repro/kernels/flash_attention/kernel.py:67",
              launches=flash_launches, **flash_stats,
              zoo_launches=zoo["launches"]["flash_attention"],
-             zoo_shapes=zoo["flash"]),
+             zoo_shapes=zoo["flash"], tp_launches=tp_launches,
+             tp_rank_shape=tp_flash,
+             tp_path_shapes_max_abs_err={
+                 k: v for k, v in tp_kernels.items() if "flash" in k}),
         dict(name="gating_topk", route="cuda",
              source="src/repro_torch/csrc/moe_gating.cu",
              replaces="src/repro/kernels/moe_gating/kernel.py:41",
              launches=gating_launches, library_ms=None, **gating_stats,
              zoo_launches=zoo["launches"]["gating_topk"],
-             zoo_shapes=zoo["gating"])]}))
+             zoo_shapes=zoo["gating"],
+             tp_path_shape_max_abs_err=tp_kernels[
+                 "gating N 2056 E 32 k 8"])]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

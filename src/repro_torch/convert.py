@@ -104,11 +104,17 @@ def _flatten(tree: Mapping, prefix: str = ""):
 
 
 def params_from_numpy(tree: Mapping, spec: Spec, device,
-                      dtype=torch.float32):
+                      dtype=torch.float32, shardings=None):
     """`repro`'s parameter tree (a nested dict of numpy arrays, stacked
     `[L, …]` block leaves) → the port's, cast to `dtype` on `device`.
     Every leaf of `spec` must be present with its shape, and nothing
-    else."""
+    else.  With `shardings` (a tree of `sharding.axes.NamedSharding`
+    matching `spec`, `Model.param_shardings`) each leaf is a DTensor of
+    this rank's block, and only the block goes to `device`."""
+    flat_s = None
+    if shardings is not None:
+        from .checkpoint.checkpointer import tree_flatten
+        flat_s, _ = tree_flatten(shardings)
     flat = dict(_flatten(tree))
     want = dict(leaves(spec))
     missing = sorted(set(want) - set(flat))
@@ -118,12 +124,17 @@ def params_from_numpy(tree: Mapping, spec: Spec, device,
     if extra:
         raise ValueError(f"parameters not in the port's spec: {extra}")
     out = []
-    for path, p in want.items():
+    for i, (path, p) in enumerate(want.items()):
         a = np.asarray(flat[path])
         if a.shape != p.shape:
             raise ValueError(f"parameter `{path}` has shape {a.shape}, the "
                              f"port's spec says {p.shape}")
-        out.append((path, _tensor(a).to(device=device, dtype=dtype)))
+        if flat_s is None:
+            out.append((path, _tensor(a).to(device=device, dtype=dtype)))
+            continue
+        local = _tensor(a[flat_s[i].block(a.shape)])
+        out.append((path, flat_s[i].distribute(
+            local.to(device=device, dtype=dtype), a.shape)))
     return unflatten(out)
 
 

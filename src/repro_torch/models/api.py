@@ -12,6 +12,12 @@ encoder-decoder of `encdec` (audio).
 sets of `sharding.axes` map onto a mesh.  `interpret=True` makes every
 kernel on the path run its plain PyTorch version, on whatever device;
 the card's comparison run uses it.
+
+Under a model mesh (`axes.use_rules(rules, mesh)`, one process per rank)
+`init(..., shardings=param_shardings(mesh, rules))` gives each rank its
+blocks as DTensors, and `loss` runs the decoder-only families under
+tensor, expert and FSDP parallelism on them (`sharding.tp`); it checks
+the layout first (`check_layout`).
 """
 from __future__ import annotations
 
@@ -19,8 +25,10 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
+from ..sharding import axes as ax
+from ..sharding import tp as tpl
 from . import encdec, lm
-from .params import axes_tree, init_params, n_params
+from .params import axes_tree, init_params, leaves, n_params
 
 
 class Model:
@@ -34,11 +42,40 @@ class Model:
                      else lm.lm_spec(cfg))
 
     # --- parameters ---
-    def init(self, generator: torch.Generator, dtype=torch.bfloat16):
-        return init_params(self.spec, generator, dtype, self.device)
+    def init(self, generator: torch.Generator, dtype=torch.bfloat16,
+             shardings=None):
+        """The parameters drawn from `generator`; with `shardings` (a
+        tree of `NamedSharding`, `param_shardings`) each leaf a DTensor
+        of this rank's block, the same numbers as one device's."""
+        return init_params(self.spec, generator, dtype, self.device,
+                           shardings)
 
     def param_axes(self):
         return axes_tree(self.spec)
+
+    def param_shardings(self, mesh, rules: ax.Rules):
+        """Each leaf's `NamedSharding` under `rules`, a mapping dropped
+        where it does not divide the leaf (`tree_shardings_matched`)."""
+        return ax.tree_shardings_matched(self.param_axes(), self.spec, mesh,
+                                         rules)
+
+    def check_layout(self, rules: ax.Rules, mesh):
+        """Raise `NotImplementedError` for a layout of this model that the
+        port does not run: sequence parallelism and the SSM mixers on a
+        wide axis (`axes.check_ported`), and the encoder-decoder under
+        any layout that shards more than the batch."""
+        logical = {a for _, p in leaves(self.spec) for a in p.axes}
+        logical |= {"batch", "seq", "seq_kv", "act_embed"}
+        ax.check_ported(rules, mesh, sorted(a for a in logical if a))
+        if self.is_encdec:
+            sizes = ax.axis_sizes(mesh)
+            wide = [k for k in logical if k and k != "batch" and any(
+                sizes.get(a, 1) > 1 for a in ax._names(rules.get(k)))]
+            if wide:
+                raise NotImplementedError(
+                    f"the encoder-decoder with {sorted(wide)} on a wide "
+                    f"axis (its 'embed' residual) comes in {ax.NEXT_SLICE}")
+        tpl.tp_axis(rules, mesh)
 
     def n_params(self) -> int:
         return n_params(self.spec)
@@ -51,7 +88,13 @@ class Model:
         `cfg.remat` applies under grad mode.  With the flag on, the causal
         self-attention, the SSD scan and the MoE router run their kernels,
         none of which has a gradient: their ops raise under grad mode, so
-        score under `torch.no_grad()`."""
+        score under `torch.no_grad()`.  Under active rules and a mesh
+        `params` may be DTensors (`init(..., shardings=)`): their local
+        blocks are used."""
+        rules, mesh = ax.get_rules(), ax.get_mesh()
+        if rules is not None and mesh is not None:
+            self.check_layout(rules, mesh)
+            params = local_blocks(params)
         if self.is_encdec:
             return encdec.encdec_loss(self.cfg, params, batch,
                                       interpret=self.interpret)
@@ -95,3 +138,15 @@ class Model:
 def build_model(cfg: ArchConfig, device="cuda",
                 interpret: bool = False) -> Model:
     return Model(cfg, device, interpret)
+
+
+def local_blocks(tree):
+    """`tree` with each DTensor leaf replaced by its local block (the same
+    storage) and the other leaves as they are."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree, dict):
+        return {k: local_blocks(v) for k, v in tree.items()}
+    if isinstance(tree, DTensor):
+        with torch.no_grad():
+            return tree.to_local()
+    return tree

@@ -11,6 +11,11 @@ prefill and decode always take the plain path, as in the reference.
 Every family runs through it (GQA groups of 1 to 8 query heads per K/V
 head); with `cfg.mrope_sections` and `positions3` the rotation is
 M-RoPE, else RoPE.
+
+Under a tensor-parallel axis (`sharding.tp`) the scoring and training
+attention computes this rank's range of query heads and the K/V heads
+they read (`_local_heads`), and `attention` returns its partial sum of
+the output projection; qk-norm and the rotation act per head.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels.flash_attention import ops as fa
+from ..sharding import tp as tpl
 from .layers import apply_mrope, apply_rope, rms_norm
 from .params import ParamDef, Spec
 
@@ -43,12 +49,47 @@ def attn_spec(cfg: ArchConfig, cross: bool = False) -> Spec:
     return spec
 
 
+def _local_heads(cfg: ArchConfig, p):
+    """(p with this rank's q and o heads and the K/V heads they read,
+    the K/V head of each local q head where the local heads do not group
+    evenly, else None).  The reference groups q head h with K/V head
+    h // G (G = H / Hk); this rank's q heads [lo, hi) read the K/V heads
+    [lo // G, (hi − 1) // G], a block of the rules' where they shard
+    kv_heads, else a narrowing of the whole K/V weights (kv_heads do not
+    divide over the axis, e.g. fewer than its size: one K/V head may
+    serve the q heads of several ranks).  `p` and None without a
+    tensor-parallel axis."""
+    tp = tpl.context()
+    if tp is None:
+        return p, None
+    H, Hk = cfg.n_heads, cfg.n_kv_heads
+    G = H // Hk
+    lo, hi = tp.range(H)
+    k_lo, k_hi = lo // G, (hi - 1) // G + 1
+    out = dict(p, q=tp.local(p["q"], 1, H), o=tp.local(p["o"], 0, H))
+    for name in ("k", "v"):
+        w = p[name]
+        if w.shape[1] == Hk:
+            w = w[:, k_lo:k_hi]
+        elif w.shape[1] != k_hi - k_lo:
+            raise ValueError(f"{name} has {w.shape[1]} K/V heads; this "
+                             f"rank's q heads [{lo}, {hi}) read "
+                             f"[{k_lo}, {k_hi})")
+        out[name] = w
+    of_q = torch.arange(lo, hi) // G - k_lo
+    n_q, n_kv = hi - lo, k_hi - k_lo
+    even = n_q % n_kv == 0 and torch.equal(
+        of_q, torch.arange(n_kv).repeat_interleave(n_q // n_kv))
+    return out, None if even else of_q
+
+
 def _project_qkv(cfg: ArchConfig, p, x, x_kv=None, positions=None,
                  positions3=None, use_rope=True):
     """q [B,S,H,hd] from x, k and v [B,Skv,Hk,hd] from `x_kv` (default
     x); qk-norm per head, then M-RoPE (with `cfg.mrope_sections` and
     `positions3` [3,B,S]) or RoPE, unless `use_rope` is off or there are
-    no `positions`."""
+    no `positions`.  Under a tensor-parallel axis `p` holds this rank's
+    heads (`_local_heads`)."""
     x_kv = x if x_kv is None else x_kv
     q = torch.einsum("bsd,dhk->bshk", x, p["q"].to(x.dtype))
     k = torch.einsum("bsd,dhk->bshk", x_kv, p["k"].to(x.dtype))
@@ -176,8 +217,13 @@ def attention(cfg: ArchConfig, p, x, positions, positions3=None,
     None: self-attention; `causal` off: the encoder's).  With
     `cfg.use_flash_kernel`, causal self-attention goes through the flash
     kernel (its plain version on the CPU or under `interpret=True`), which
-    has no gradient."""
+    has no gradient.  Under a tensor-parallel axis `x` is the full rows
+    and the result this rank's partial sum over its q heads."""
+    p, kv_of_q = _local_heads(cfg, p)
     q, k, v = _project_qkv(cfg, p, x, x_kv, positions, positions3, use_rope)
+    if kv_of_q is not None:     # one K/V head per local q head
+        idx = kv_of_q.to(k.device)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
     if cfg.use_flash_kernel and causal and x_kv is None:
         out = fa.flash_attention(q, k, v, causal=True, interpret=interpret)
     else:

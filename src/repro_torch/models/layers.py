@@ -1,7 +1,14 @@
 """Shared layer primitives (port of `repro.models.layers`): the RMS norm,
 rotary embeddings (RoPE, and M-RoPE for the VLM), the MLP
 variants (SwiGLU / squared-ReLU / GELU), the token embedding and head,
-and the chunked cross-entropy."""
+and the chunked cross-entropy.
+
+Under a tensor-parallel axis (`sharding.tp`) the MLP is column-parallel
+into this rank's MLP columns and row-parallel out, returning its partial
+sum; the embedding looks up this rank's vocabulary range and reduce-
+scatters to the residual's block; the cross-entropy computes this
+rank's vocabulary range of the logits and combines the ranks'
+logsumexp terms and the label's logit with all-reduces."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -10,6 +17,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..sharding import ranks
+from ..sharding import tp as tpl
 from .params import ParamDef, Spec
 
 
@@ -85,6 +94,12 @@ def silu(a):
 
 
 def mlp_apply(cfg: ArchConfig, p, x):
+    """x [..., d] → [..., d]; under a tensor-parallel axis x is the full
+    rows and the result this rank's partial sum over its MLP columns."""
+    tp = tpl.context()
+    if tp is not None:
+        p = {k: tp.local(w, 0 if k == "wo" else 1, cfg.d_ff)
+             for k, w in p.items()}
     if cfg.act == "swiglu":
         h = silu(x @ p["wi0"]) * (x @ p["wi1"])
     elif cfg.act == "sq_relu":
@@ -105,12 +120,29 @@ def embed_spec(cfg: ArchConfig) -> Spec:
     return spec
 
 
-def embed_tokens(p, tokens):
-    return p["tok"][tokens]
+def embed_tokens(p, tokens, vocab: Optional[int] = None):
+    """The token rows; under a tensor-parallel axis this rank's block of
+    them (`act_embed`): each rank looks up the ids of its range of the
+    `vocab` entries (zero rows elsewhere) and the ranks' rows are summed
+    and scattered, exactly the lookup's values."""
+    tp = tpl.context()
+    if tp is None:
+        return p["tok"][tokens]
+    if vocab is None:
+        raise ValueError("a tensor-parallel lookup needs the vocabulary "
+                         "size")
+    lo, hi = tp.range(vocab)
+    w = tp.local(p["tok"], 0, vocab)
+    inside = (tokens >= lo) & (tokens < hi)
+    rows = w[torch.where(inside, tokens - lo, 0)]
+    return tp.scatter(torch.where(inside[..., None], rows, 0.0))
 
 
 def unembed(cfg: ArchConfig, p, x, eps=1e-6):
     """Final norm and head; logits in float32."""
+    if tpl.context() is not None:
+        raise NotImplementedError("full logits under tensor parallelism "
+                                  "(the loss takes chunked_ce)")
     x = rms_norm(x, p["final_norm"], eps)
     w = p["tok"].T if cfg.tie_embeddings else p["head"]
     return (x @ w.to(x.dtype)).float()
@@ -120,9 +152,16 @@ def chunked_ce(cfg: ArchConfig, p, hidden, labels, chunk: int = 512):
     """Cross-entropy without materializing [B,S,vocab] logits: logits are
     computed per sequence chunk in float32, labels < 0 are masked, and a
     sequence off the chunk is padded with label −1.  Returns (nll_sum
-    float32, count)."""
-    x = rms_norm(hidden, p["final_norm"], cfg.norm_eps)
+    float32, count).  Under a tensor-parallel axis `hidden` is the
+    residual's block, gathered here; each rank computes its vocabulary
+    range of the logits, the logsumexp comes from all-reduces of the row
+    maxima and of the sums of exponentials, the label's logit from the
+    rank whose range holds it (`_vocab_parallel_terms`)."""
+    tp = tpl.context()
+    x = rms_norm(tpl.gather(hidden), p["final_norm"], cfg.norm_eps)
     w = p["tok"].T if cfg.tie_embeddings else p["head"]
+    if tp is not None:
+        w = tp.local(w, 1, cfg.vocab)
     B, S, d = x.shape
     c = max(1, min(chunk, S))
     pad = (-S) % c
@@ -134,10 +173,29 @@ def chunked_ce(cfg: ArchConfig, p, hidden, labels, chunk: int = 512):
     for i in range(0, S + pad, c):
         xb, lb = x[:, i:i + c], labels[:, i:i + c]
         logits = (xb @ w.to(xb.dtype)).float()
-        lse = torch.logsumexp(logits, dim=-1)               # [B,c]
         valid = lb >= 0
-        gold = torch.gather(logits, -1,
-                            torch.where(valid, lb, 0)[..., None])[..., 0]
+        if tp is None:
+            lse = torch.logsumexp(logits, dim=-1)           # [B,c]
+            gold = torch.gather(logits, -1,
+                                torch.where(valid, lb, 0)[..., None])[..., 0]
+        else:
+            lse, gold = _vocab_parallel_terms(tp, cfg.vocab, logits, lb)
         nll_sum = nll_sum + torch.where(valid, lse - gold, 0.0).sum()
         cnt = cnt + valid.sum()
     return nll_sum, cnt
+
+
+def _vocab_parallel_terms(tp, vocab: int, logits, labels):
+    """(logsumexp, the label's logit) of rows whose logits are spread
+    over the ranks by vocabulary range, this rank's `logits` [B,c,V_r];
+    labels < 0 give a 0 label logit.  The all-reduces of the partial sums
+    pass the gradient through, so each rank's logits get their part of
+    it (`ranks.all_reduce`)."""
+    lo, hi = tp.range(vocab)
+    m = ranks.all_max_(logits.detach().amax(dim=-1), tp.group)
+    sum_exp = tp.all_reduce(torch.exp(logits - m[..., None]).sum(dim=-1))
+    lse = m + torch.log(sum_exp)
+    own = (labels >= lo) & (labels < hi)
+    gold = torch.gather(logits, -1,
+                        torch.where(own, labels - lo, 0)[..., None])[..., 0]
+    return lse, tp.all_reduce(torch.where(own, gold, 0.0))

@@ -23,6 +23,14 @@ optional prefix of precomputed vision embeddings (`extra_embeds`,
 prepended to the token embeddings; no loss on it); its three position
 streams are the same stream, as the reference builds them
 (`_positions3`).  The audio family is `encdec`'s.
+
+Under a tensor-parallel axis (`sharding.tp`; `base_rules` with "model"
+larger than 1) the scoring and training forward holds the residual
+stream as this rank's block of `act_embed`: each block gathers it before
+its norm, and the mixer's and the FFN's partial sums are scattered back
+to the block.  Under `fsdp_rules` each layer's parameters, and the
+embedding's at each use, are gathered over the data axes inside the
+remat'd layer (`tp.fsdp_gather`).  Prefill and decode run on one device.
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ArchConfig
+from ..sharding import tp as tpl
 from ..sharding.axes import shard
 from . import attention as attn
 from . import moe as moe_lib
@@ -103,7 +112,7 @@ def _apply_block(cfg: ArchConfig, mixer: str, ffn: str, p, x, *,
     """Pre-norm mixer block with its residual, then the FFN and its
     residual (no FFN in the SSM family).  Returns (x, cache, aux): the
     MoE layer's aux loss in training mode, else None."""
-    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    h = rms_norm(tpl.gather(x), p["norm1"], cfg.norm_eps)
     new_cache = cache
     if mixer == "attn":
         if mode == "train":
@@ -121,17 +130,17 @@ def _apply_block(cfg: ArchConfig, mixer: str, ffn: str, p, x, *,
     else:
         y, new_cache = ssm_lib.ssm_apply(cfg, p["mixer"], h, cache,
                                          interpret=interpret)
-    x = x + y
+    x = x + tpl.scatter(y)
     aux = None
     if ffn != "none":
-        h = rms_norm(x, p["norm2"], cfg.norm_eps)
+        h = rms_norm(tpl.gather(x), p["norm2"], cfg.norm_eps)
         if ffn == "mlp":
             y = mlp_apply(cfg, p["ffn"], h)
         else:
             y, aux = moe_lib.moe_apply(cfg, p["ffn"], h,
                                        need_aux=mode == "train",
                                        interpret=interpret)
-        x = x + y
+        x = x + tpl.scatter(y)
     return x, new_cache, aux
 
 
@@ -165,11 +174,16 @@ def _positions3(cfg: ArchConfig, positions):
     return positions[None].expand((3,) + tuple(positions.shape))
 
 
-def _embed(params, tokens, extra_embeds):
+def _embed(cfg: ArchConfig, params, tokens, extra_embeds):
     """Token embeddings, after the prefix `extra_embeds` [B,Sv,d] cast to
-    their type when given."""
-    x = embed_tokens(params["embed"], tokens)
+    their type when given; under a tensor-parallel axis this rank's block
+    of both."""
+    x = embed_tokens(tpl.fsdp_gather(params["embed"], embed_spec(cfg)),
+                     tokens, cfg.vocab)
     if extra_embeds is not None:
+        tp = tpl.context()
+        if tp is not None:
+            extra_embeds = tp.block(extra_embeds)
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     return x
 
@@ -179,7 +193,11 @@ def _run_stack(cfg: ArchConfig, blocks_p, x, caches, mode: str, pos=None,
     """Walk the stacked layer axis (the hybrid's periods, and each
     period's sub-layers) with caches; returns (x, caches).  The attention
     layers write K/V into the stacked caches in place (each layer's cache
-    is a view of them); the SSM layers' new states are stacked anew."""
+    is a view of them); the SSM layers' new states are stacked anew.
+    One device: serving under a model mesh is not ported."""
+    if tpl.context() is not None:
+        raise NotImplementedError("prefill and decode under tensor "
+                                  "parallelism are not ported")
     period = _period(cfg)
     if mode == "prefill":
         positions = _positions(x)
@@ -281,12 +299,16 @@ def forward_hidden(cfg: ArchConfig, params, tokens, extra_embeds=None,
     sum, 0 without them; the hybrid's summed over each period's
     sub-layers, then over the periods, as the reference's scan does)."""
     period = _period(cfg)
-    x = shard(_embed(params, tokens, extra_embeds), "batch", "seq",
+    x = shard(_embed(cfg, params, tokens, extra_embeds), "batch", "seq",
               "act_embed")
     positions = _positions(x)
     positions3 = _positions3(cfg, positions)
+    kinds = _layer_kinds(cfg)
+    layer_spec = block_spec(cfg, *kinds[0]) if len(kinds) == 1 else {
+        f"sub{i}": block_spec(cfg, m, f) for i, (m, f) in enumerate(kinds)}
 
     def layers(x, p_l):
+        p_l = tpl.fsdp_gather(p_l, layer_spec)
         total = None
         for key, mixer, ffn in period:
             x, _, aux = _apply_block(cfg, mixer, ffn, _sub(p_l, key), x,
@@ -326,7 +348,9 @@ def lm_loss(cfg: ArchConfig, params, batch,
     hidden, aux = forward_hidden(cfg, params, tokens, extra, interpret)
     if extra is not None:
         labels = F.pad(labels, (extra.shape[1], 0), value=-1)
-    nll_sum, cnt = chunked_ce(cfg, params["embed"], hidden, labels)
+    nll_sum, cnt = chunked_ce(cfg, tpl.fsdp_gather(params["embed"],
+                                                   embed_spec(cfg)),
+                              hidden, labels)
     denom = torch.clamp_min(cnt, 1)
     loss = nll_sum / denom
     total = loss + cfg.router_aux_coef * aux
@@ -340,7 +364,7 @@ def prefill(cfg: ArchConfig, params, tokens, max_seq: int,
     given; writes the caches (K/V, or the SSM state with a bfloat16 conv
     state, unless `caches` are given).  Returns (logits_last [B,vocab],
     caches, seq_len = Sv + S)."""
-    x = _embed(params, tokens, extra_embeds)
+    x = _embed(cfg, params, tokens, extra_embeds)
     B, S, _ = x.shape
     if caches is None:
         caches = init_caches(cfg, B, max_seq, device=x.device)

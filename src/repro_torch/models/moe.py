@@ -19,8 +19,20 @@ is 160 or 1) every order gives the same slots and one `torch.cumsum`
 does; elsewhere `scan_sum` takes it the way XLA runs the reference's
 `jnp.cumsum` on the CPU, so the slots are the reference's (ROADMAP.md,
 "Reference semantics the port keeps").  The load-balance loss's means
-are over the whole batch under a data-parallel mesh (`ranks.batch_mean`);
-the reference's other sharding annotations have no counterpart there.
+are over the whole batch under a mesh that splits it
+(`ranks.batch_mean`).
+
+Expert parallelism, under a tensor-parallel axis (`sharding.tp`): the
+router's weight is ("embed", "expert"), so its block gives this rank's
+experts' logits, which are all-gathered before the softmax and top-k:
+every rank ranks all E experts and computes the same gates, ids and
+slots as one device.  Each rank then dispatches to, runs and combines
+only its range of experts (their `mlp` dimension whole: `spec_for`
+uses "model" once); the combine's partial sums go back to the
+residual's block through the caller's reduce-scatter.  The load-balance
+loss sums its per-expert terms by range and all-reduces them, so that
+each rank's gradient is its experts' part (the `sharding.tp`
+convention).
 """
 from __future__ import annotations
 
@@ -30,6 +42,7 @@ import torch.nn.functional as F
 from ..configs.base import ArchConfig
 from ..kernels.moe_gating.ops import fused_gating
 from ..kernels.moe_gating.ref import reference_gating
+from ..sharding import tp as tpl
 from ..sharding.ranks import batch_mean
 from .layers import silu
 from .params import ParamDef, Spec
@@ -101,7 +114,11 @@ def router_topk(cfg: ArchConfig, p, x, need_aux: bool = True,
                 interpret: bool = False):
     """x [N, d] flattened tokens → (gate [N, k] in x's type, expert ids
     [N, k] int32, aux loss [] float32, or None unless `need_aux`)."""
+    tp = tpl.context()
+    E = cfg.n_experts
     logits = (x @ p["router"].to(x.dtype)).float()                # [N, E]
+    if tp is not None and logits.shape[-1] != E:    # the rules' block
+        logits = tp.gather(logits)
     if cfg.use_flash_kernel:
         gate, idx = fused_gating(logits, cfg.top_k, interpret=interpret)
     else:
@@ -109,13 +126,16 @@ def router_topk(cfg: ArchConfig, p, x, need_aux: bool = True,
     aux = None
     if need_aux:
         # Switch-style load-balance loss: E · Σ_e f_e · P_e
-        E = cfg.n_experts
-        # over the whole batch when a data-parallel mesh splits it, as
-        # GSPMD takes the reference's means (`ranks.batch_mean`)
+        # over the whole batch when a mesh splits it, as GSPMD takes the
+        # reference's means (`ranks.batch_mean`)
         me = batch_mean(torch.mean(torch.softmax(logits, dim=-1), dim=0))
         ce = batch_mean(torch.mean(F.one_hot(idx.long(), E).float().sum(1),
                                    dim=0))
-        aux = E * torch.sum(me * ce)
+        if tp is None:
+            aux = E * torch.sum(me * ce)
+        else:
+            lo, hi = tp.range(E)
+            aux = tp.all_reduce(E * torch.sum(me[lo:hi] * ce[lo:hi]))
     return gate.to(x.dtype), idx, aux
 
 
@@ -124,7 +144,8 @@ def moe_apply(cfg: ArchConfig, p, x, group_size: int = 512,
     """x [B, S, d] → (y [B, S, d], aux loss or None).  Groups of
     ng = min(group_size, S) tokens of one batch row; S is padded to a
     multiple of ng and padded tokens get gate 0, so they are never
-    dispatched."""
+    dispatched.  Under a tensor-parallel axis x is the full rows and y
+    this rank's experts' partial sum."""
     B, S0, d = x.shape
     ng = max(1, min(group_size, S0))
     pad = (-S0) % ng
@@ -155,6 +176,12 @@ def moe_apply(cfg: ArchConfig, p, x, group_size: int = 512,
     pos = torch.where(keep, pos, 0).long()
 
     pos_oh = F.one_hot(pos, C).to(x.dtype) * keep[..., None].to(x.dtype)
+    tp = tpl.context()
+    if tp is not None:          # this rank's experts
+        lo, hi = tp.range(E)
+        onehot = onehot[..., lo:hi]
+        p = {k: w if k == "router" else tp.local(w, 0, E)
+             for k, w in p.items()}
     dispatch = torch.einsum("gnke,gnkc->gnec", onehot, pos_oh)     # [G,n,E,C]
     expert_in = torch.einsum("gnd,gnec->gecd", xg, dispatch)       # [G,E,C,d]
 

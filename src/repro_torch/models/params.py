@@ -77,12 +77,15 @@ def n_params(spec: Spec) -> int:
 
 
 def init_params(spec: Spec, generator: torch.Generator, dtype=torch.bfloat16,
-                device=None):
+                device=None, shardings=None):
     """Materialize `spec`: normal draws scaled by 1/sqrt(fan_in) (fan_in =
     shape[-2] after stacking, or the given `scale`), ones and zeros as
     given.  Draws are float32 from `generator` on its own device, in
     sorted key order, then cast to `dtype` on `device` (default: the
-    generator's)."""
+    generator's).  With `shardings` (a tree of `sharding.axes.
+    NamedSharding` matching `spec`) each leaf is drawn whole, so that the
+    numbers are one device's, and kept as a DTensor of this rank's block
+    (`NamedSharding.place`); one leaf is whole at a time."""
     device = torch.device(device) if device is not None else \
         generator.device
 
@@ -97,4 +100,9 @@ def init_params(spec: Spec, generator: torch.Generator, dtype=torch.bfloat16,
                         device=generator.device)
         return (scale * w).to(device=device, dtype=dtype)
 
-    return unflatten((path, make(p)) for path, p in leaves(spec))
+    if shardings is None:
+        return unflatten((path, make(p)) for path, p in leaves(spec))
+    from ..checkpoint.checkpointer import tree_flatten
+    flat_s, _ = tree_flatten(shardings)
+    return unflatten((path, s.place(make(p))) for (path, p), s in
+                     zip(leaves(spec), flat_s))

@@ -31,10 +31,11 @@ give each leaf a `NamedSharding`: its spec on the mesh, as DTensor
 placements (`Shard(d)` on each mesh dimension that names tensor
 dimension d, `Replicate()` elsewhere) and as this rank's block of the
 full tensor.  What GSPMD inserts implicitly in `repro` the port does
-with explicit collectives on each axis's process group
-(`train.step.make_train_step(mesh=, rules=)`); it runs the layouts whose
-rules shard nothing but the batch over an axis larger than 1
-(`check_data_parallel`).
+with explicit collectives on each axis's process group: the batch's in
+`train.step.make_train_step(mesh=, rules=)`, tensor and expert
+parallelism's and FSDP's gathers in the model code (`sharding.tp`).
+Sequence parallelism and the SSM mixers under a wide axis are not
+ported yet and raise (`check_ported`).
 """
 from __future__ import annotations
 
@@ -337,38 +338,48 @@ def batch_axes(rules: Rules) -> Tuple[str, ...]:
     return _names(rules.get("batch"))
 
 
-def check_data_parallel(rules: Rules, mesh, logical=None):
-    """Raise `NotImplementedError` if `rules` map any logical axis other
-    than the batch (of `logical`, default all) onto a mesh axis larger
-    than 1: tensor and expert parallelism over "model", `fsdp_rules`,
-    `sequence_parallel_rules` and the multi-pod sequence split are not
-    ported (ROADMAP queue 1, item 11b), and the port never replicates
-    what the rules shard."""
+# what the next slice ports (ROADMAP queue 1, item 11b)
+NEXT_SLICE = ("the next slice of the port (ROADMAP queue 1, item 11b): "
+              "sequence parallelism, pure_dp_rules(True)'s sequence over "
+              "'pod' and the SSM mixers under a wide 'model' axis")
+_UNPORTED = {"seq": "sequence parallelism", "seq_kv": "sequence parallelism",
+             "ssm_heads": "an SSM mixer's heads",
+             "ssm_inner": "an SSM mixer's inner width"}
+
+
+def check_ported(rules: Rules, mesh, logical=None):
+    """Raise `NotImplementedError`, naming the next slice, if `rules` put
+    one of the logical axes (of `logical`, default all) whose layouts are
+    not ported on a mesh axis: the sequence (`seq`, `seq_kv`:
+    `sequence_parallel_rules`, `pure_dp_rules(True)`) on any axis of the
+    mesh, the SSM mixers' `ssm_heads` / `ssm_inner` on one larger than 1.
+    The port never replicates what the rules shard."""
     sizes = axis_sizes(mesh)
     for k in (logical if logical is not None else rules):
-        if k is None or k == "batch":
+        if k not in _UNPORTED:
             continue
-        wide = [a for a in _names(rules.get(k)) if sizes.get(a, 1) > 1]
+        least = 0 if k.startswith("seq") else 1
+        wide = [a for a in _names(rules.get(k)) if sizes.get(a, 0) > least]
         if wide:
             raise NotImplementedError(
                 f"the rules put {k!r} on mesh axis {wide[0]!r} of size "
-                f"{sizes[wide[0]]}: only the batch may be sharded (tensor, "
-                "expert, FSDP and sequence parallelism are ROADMAP queue 1, "
-                "item 11b)")
+                f"{sizes[wide[0]]}: {_UNPORTED[k]} over a mesh axis comes "
+                f"in {NEXT_SLICE}")
 
 
 def shard(x, *axes):
     """The reference's sharding constraint.  With no rules or mesh active
-    it returns `x`.  Under a data-parallel mesh each rank already holds
-    its block of the batch, so it returns `x` after checking that the
-    rules shard no other of its axes (`check_data_parallel`)."""
+    it returns `x`.  Under a model mesh each rank already holds its block
+    of `x` (the model code places it: `sharding.tp`), so it returns `x`
+    after checking that the rules put none of its axes where the port
+    does not go yet (`check_ported`)."""
     rules, mesh = get_rules(), get_mesh()
     if rules is None or mesh is None:
         return x
     if len(axes) != x.dim():
         raise ValueError(f"{len(axes)} logical axes for a {x.dim()}-d "
                          "tensor")
-    check_data_parallel(rules, mesh, axes)
+    check_ported(rules, mesh, axes)
     return x
 
 

@@ -23,10 +23,30 @@ refuses two ranks on one card):
   blocks gathered flat, each copied to its place;
 * `batch_mean`: the mean over the active rules' batch axes with a
   gradient (what GSPMD's mean over a sharded batch is), for statistics
-  that couple the rows of a batch (the MoE router's load-balance loss).
+  that couple the rows of a batch (the MoE router's load-balance loss);
+* the differentiable collectives of tensor parallelism and FSDP, over
+  one group, each the transpose of its backward: `all_gather` along a
+  dimension (backward: reduce-scatter), `reduce_scatter` (backward:
+  all-gather), `all_reduce` (backward: the identity, for a sum of
+  partial results that every rank then uses whole) and its conjugate
+  `copy_to` (forward: the identity; backward: all-reduce), the entry of
+  a column-parallel product whose input every rank holds whole.  The
+  model code holds the residual as blocks, so its projections enter
+  through `all_gather` and no model code calls `copy_to` yet; it is the
+  other half of the pair, kept with its test for a layout whose input
+  is replicated.  A reduce-scatter is an all-reduce and a slice, so two
+  collectives are all the backends must take; it moves the whole sum
+  where a reduce-scatter would move a block.  Rank g of a group holds block g: the groups of
+  `axis_group` list their ranks in mesh order, major axis first, which
+  is the order of `axes.NamedSharding.block`.
+
+`traffic` counts the bytes each collective of this process handed to
+the backend (an all-reduce its tensor, an all-gather its gathered
+output), by name; a caller resets it (``traffic.clear()``) and reads it.
 """
 from __future__ import annotations
 
+import collections
 import datetime
 import os
 import tempfile
@@ -39,6 +59,9 @@ import torch.distributed as dist
 from . import axes as ax
 
 TIMEOUT = datetime.timedelta(seconds=300)
+
+# bytes handed to each collective by this process, by collective name
+traffic: collections.Counter = collections.Counter()
 
 
 def rank_device(rank: int, device: str = "cuda") -> torch.device:
@@ -132,13 +155,27 @@ def axis_group(mesh, names: Sequence[str]) -> Tuple[Any, int]:
 
 
 def all_sum_(t: torch.Tensor, group=None) -> torch.Tensor:
+    traffic["all_reduce"] += t.numel() * t.element_size()
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
 
 
 def all_max_(t: torch.Tensor, group=None) -> torch.Tensor:
+    traffic["all_reduce"] += t.numel() * t.element_size()
     dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
     return t
+
+
+def _gather_flat(local: torch.Tensor, n: int, group) -> torch.Tensor:
+    """The `n` ranks' `local`s, flat and concatenated in group order."""
+    flat = torch.empty(n * local.numel(), dtype=local.dtype,
+                       device=local.device)
+    traffic["all_gather"] += flat.numel() * flat.element_size()
+    with warnings.catch_warnings():     # renamed all_gather_single in 2.13
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.all_gather_into_tensor(flat, local.contiguous().reshape(-1),
+                                    group=group)
+    return flat
 
 
 def gather_full(local: torch.Tensor, sharding: ax.NamedSharding,
@@ -153,13 +190,7 @@ def gather_full(local: torch.Tensor, sharding: ax.NamedSharding,
     group, n = axis_group(sharding.mesh, names)
     if n == 1:
         return local.reshape(shape).clone()
-    flat = torch.empty(n * local.numel(), dtype=local.dtype,
-                       device=local.device)
-    with warnings.catch_warnings():     # renamed all_gather_single in 2.13
-        warnings.simplefilter("ignore", FutureWarning)
-        dist.all_gather_into_tensor(flat, local.contiguous().reshape(-1),
-                                    group=group)
-    parts = flat.view((n,) + tuple(local.shape))
+    parts = _gather_flat(local, n, group).view((n,) + tuple(local.shape))
     full = torch.empty(shape, dtype=local.dtype, device=local.device)
     grid = sharding.mesh.mesh
     for g in range(n):
@@ -223,3 +254,91 @@ def batch_mean(x: torch.Tensor) -> torch.Tensor:
         return x
     return _SumOverRanks.apply(x, group) / torch.full(
         (), n, dtype=x.dtype, device=x.device)
+
+
+def _cat_blocks(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    parts = _gather_flat(x, n, group).view((n,) + tuple(x.shape))
+    return torch.cat(parts.unbind(0), dim=dim)
+
+
+def _own_block(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    """This rank's block of the sum of `x` over the group, along `dim`."""
+    total = all_sum_(x.clone(memory_format=torch.contiguous_format), group)
+    w = x.shape[dim] // n
+    return total.narrow(dim, dist.get_rank(group) * w, w).clone()
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, n):
+        ctx.dim, ctx.group, ctx.n = dim, group, n
+        return _cat_blocks(x, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own_block(g, ctx.dim, ctx.group, ctx.n), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, n):
+        if x.shape[dim] % n:
+            raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not "
+                             f"divide over {n} ranks")
+        ctx.dim, ctx.group, ctx.n = dim, group, n
+        return _own_block(x, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _cat_blocks(g, ctx.dim, ctx.group, ctx.n), None, None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_sum_(x.clone(memory_format=torch.contiguous_format),
+                        group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_sum_(g.clone(), ctx.group), None
+
+
+def all_gather(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    """The `n` ranks' blocks `x` concatenated along `dim` (rank g's block
+    at g); the backward sums the incoming gradients over the group and
+    gives each rank its block (a reduce-scatter).  `x` itself when n is
+    1."""
+    return x if n == 1 else _AllGather.apply(x, dim, group, n)
+
+
+def reduce_scatter(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    """This rank's block along `dim` of the sum of the ranks' `x`; the
+    backward all-gathers the blocks' gradients.  `x` when n is 1."""
+    return x if n == 1 else _ReduceScatter.apply(x, dim, group, n)
+
+
+def all_reduce(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """The sum of the ranks' `x`, on every rank; the backward passes the
+    gradient through unchanged: each rank holds a partial result and uses
+    the whole sum, so the gradient of its part is the sum's.  `x` when n
+    is 1."""
+    return x if n == 1 else _AllReduce.apply(x, group)
+
+
+def copy_to(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """`x`, whose gradient is summed over the group in the backward: the
+    conjugate of `all_reduce`, for a value every rank holds whole and
+    uses in part.  `x` when n is 1."""
+    return x if n == 1 else _CopyTo.apply(x, group)

@@ -15,8 +15,8 @@ The model's kernels have no gradient: with `use_flash_kernel=True` their
 ops raise under grad mode, and so does the step.
 
 With a `mesh` (a `DeviceMesh` of ranks, `sharding.ranks`) and `rules`,
-the step is data-parallel, what GSPMD makes of the reference's step
-under a batch-sharded mesh, as explicit collectives: each rank gets its
+the step is what GSPMD makes of the reference's step under them, as
+explicit collectives.  Data parallelism: each rank gets its
 block of the global batch (the rules' "batch" axes, major first: the
 `TokenPipeline` with `shard_id` = that index and `num_shards` = their
 product), runs the same `grads_of` on it under `use_rules` (statistics
@@ -24,13 +24,26 @@ that couple rows, the MoE load-balance loss, are taken over the whole
 batch there: `ranks.batch_mean`), and the gradients and metrics are
 averaged over the batch axes ("tokens" summed).  Then the compressor,
 and `adamw.update`, which is ZeRO-1 where the moments are sharded
-(`adamw.init(params, opt_shardings(model, mesh, rules))`).  The
-parameters stay full and bitwise equal on every rank.  With
+(`adamw.init(params, opt_shardings(model, mesh, rules))`).  With
 `accum_steps > 1` the i-th microbatch is, as in the reference, the i-th
 contiguous slice of the global batch, each rank taking its block of it:
-the global token rows are gathered first (a few kilobytes).  Layouts
-whose rules shard anything but the batch over an axis larger than 1
-raise `NotImplementedError` (`axes.check_data_parallel`).
+the global token rows are gathered first (a few kilobytes).
+
+Tensor and expert parallelism over "model" (`base_rules`) and FSDP
+(`fsdp_rules`): the parameters are DTensors of each rank's blocks
+(`Model.init(..., shardings=model.param_shardings(mesh, rules))`), the
+model runs on the blocks (`sharding.tp`) and the gradients stay blocks.
+Each leaf's gradient is summed over the axes on which it is partial and
+then divided by the batch's rank count: the batch axes that do not
+shard it (those that do, FSDP's, were summed by its gather's backward)
+and, for a leaf replicated over the tensor-parallel axis (the norms, a
+router or vocabulary whose dimension does not divide), that axis.  So a
+replicated leaf ends bitwise equal on every rank.  Parameters that are
+not DTensors are full and replicated, as under data parallelism alone.
+The error-feedback compressor quantizes each leaf by its largest
+element, which a block does not know, so it takes only full gradients.
+Layouts the port does not run yet raise `NotImplementedError`
+(`Model.check_layout`).
 """
 from __future__ import annotations
 
@@ -39,15 +52,17 @@ from typing import Callable
 import torch
 
 from ..checkpoint.checkpointer import tree_flatten
-from ..models.api import Model
+from ..models.api import Model, local_blocks
 from ..optim import adamw
 from ..sharding import axes as ax
 from ..sharding import ranks
+from ..sharding import tp as tpl
 
 
 def _value_and_grad(model: Model, params, batch):
-    """(loss, metrics, grads) of `model.loss`, detached."""
-    flat, treedef = tree_flatten(params)
+    """(loss, metrics, grads) of `model.loss`, detached; the gradients of
+    DTensor leaves are their local blocks'."""
+    flat, treedef = tree_flatten(local_blocks(params))
     leaves = [p.detach().requires_grad_() for p in flat]
     with torch.enable_grad():
         loss, metrics = model.loss(treedef.unflatten(leaves), batch)
@@ -81,7 +96,7 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
     def grads_of(params, batch):
         if accum_steps <= 1:
             return _value_and_grad(model, params, batch)
-        flat_p, treedef = tree_flatten(params)
+        flat_p, treedef = tree_flatten(local_blocks(params))
         gacc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                 for p in flat_p]
         lsum = torch.zeros((), dtype=torch.float32, device=flat_p[0].device)
@@ -110,9 +125,29 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
 
     if rules is None:
         raise ValueError("a mesh without rules")
-    ax.check_data_parallel(rules, mesh)
+    model.check_layout(rules, mesh)
     rows = ax.NamedSharding(mesh, ax.P(ax.batch_axes(rules)))
     group, n = ranks.axis_group(mesh, ax.batch_axes(rules))
+    tp_axis = tpl.tp_axis(rules, mesh)
+    shardings, _ = tree_flatten(model.param_shardings(mesh, rules))
+    sizes = ax.axis_sizes(mesh)
+
+    def sharded(s):
+        return any(sizes[a] > 1 for e in s.spec for a in ax._names(e))
+    if compressor is not None and any(map(sharded, shardings)):
+        raise NotImplementedError("the error-feedback compressor on "
+                                  "gradient blocks")
+
+    def partial_over(s):
+        """The mesh axes over which a leaf of sharding `s` has a partial
+        gradient, in mesh order."""
+        spec_axes = {a for e in s.spec for a in ax._names(e)}
+        want = [a for a in ax.batch_axes(rules) if a not in spec_axes]
+        if tp_axis is not None and tp_axis not in spec_axes:
+            want.append(tp_axis)
+        return [a for a in mesh.mesh_dim_names if a in want]
+    reduce_groups = [ranks.axis_group(mesh, partial_over(s))
+                     for s in shardings]
 
     def microbatch_order(batch):
         """This rank's rows of each global microbatch, in order."""
@@ -131,13 +166,27 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
                                 for i in range(accum_steps)])
         return out
 
+    def check_params(params):
+        for p, s in zip(tree_flatten(params)[0], shardings):
+            got = ranks.sharding_of(p)
+            if got is None and sharded(s):
+                raise ValueError(
+                    f"a full parameter where the rules shard it ({s.spec}): "
+                    "give the blocks, Model.init(..., shardings="
+                    "model.param_shardings(mesh, rules))")
+            if got is not None and tuple(got.spec) != tuple(s.spec):
+                raise ValueError(f"a parameter block of spec {got.spec} "
+                                 f"where the rules give {s.spec}")
+
     def average(metrics, grads):
-        if n == 1:
-            return metrics, grads
         flat, treedef = tree_flatten(grads)
-        for g in flat:
-            ranks.all_sum_(g, group).div_(
-                torch.full((), n, dtype=g.dtype, device=g.device))
+        for g, (g_group, g_n) in zip(flat, reduce_groups):
+            if g_n > 1:
+                ranks.all_sum_(g, g_group)
+            if n > 1:
+                g.div_(torch.full((), n, dtype=g.dtype, device=g.device))
+        if n == 1:
+            return metrics, treedef.unflatten(flat)
         keys = sorted(metrics)
         vec = ranks.all_sum_(torch.stack([metrics[k].to(torch.float32)
                                           for k in keys]), group)
@@ -146,6 +195,7 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
         return dict(zip(keys, vec / div)), treedef.unflatten(flat)
 
     def dp_train_step(params, opt_state, batch):
+        check_params(params)
         with ax.use_rules(rules, mesh):
             _, metrics, grads = grads_of(params, microbatch_order(batch))
         metrics, grads = average(metrics, grads)

@@ -849,6 +849,55 @@ def test_two_gloo_ranks_on_the_card_match_the_cpu_ranks(cuda):
         assert float((gap > 1e-2).float().mean()) <= 1e-3
 
 
+# ---- tensor parallelism: two gloo ranks sharing the card ----
+
+@pytest.fixture(scope="module")
+def tp_card_runs():
+    """`torch_tp_workers.card_rank` on two gloo ranks of card 0, from
+    qwen3's smoke float32 init."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import torch_tp_workers as TW
+    from repro_torch.checkpoint.checkpointer import tree_flatten
+    from repro_torch.models.api import build_model
+    from repro_torch.models.params import leaves, unflatten
+    from repro_torch.sharding.ranks import spawn_ranks
+    model = build_model(TW.smoke("qwen3-1.7b"), "cpu")
+    flat = tree_flatten(model.init(torch.Generator().manual_seed(0),
+                                   torch.float32))[0]
+    start = unflatten((path, t.numpy()) for (path, _), t in
+                      zip(leaves(model.spec), flat))
+    tokens = np.random.default_rng(0).integers(0, model.cfg.vocab, (2, 40))
+    return spawn_ranks(TW.card_rank, 2, "gloo", "cuda:0", (start, tokens))
+
+
+def test_tp_collectives_on_the_card_equal_the_cpu(tp_card_runs):
+    """Each differentiable collective (all-gather, reduce-scatter,
+    all-reduce, its conjugate) over two gloo ranks on card tensors: its
+    output and its input's gradient bitwise the same call's on CPU
+    tensors in the same ranks."""
+    for res in tp_card_runs:
+        for name, (y, g) in res["card"].items():
+            cy, cg = res["cpu"][name]
+            assert torch.equal(y, cy) and torch.equal(g, cg), name
+
+
+def test_tp_scoring_with_flash_matches_the_plain_attention(tp_card_runs):
+    """qwen3's smoke scoring loss under `base_rules(False)` on (1, 1, 2),
+    float32: with the flash op each rank launches the kernel once per
+    layer on its two q heads and one K/V head, and the loss is within
+    1e-5 of the same call with the plain attention (no launch); both
+    ranks give the same loss."""
+    from repro_torch.configs.qwen3_1p7b import smoke_config
+    layers = smoke_config().n_layers
+    for res in tp_card_runs:
+        (plain, n_plain), (flash, n_flash) = (res["losses"][False],
+                                              res["losses"][True])
+        assert n_plain == 0 and n_flash == layers
+        assert abs(flash - plain) <= 1e-5 * abs(plain)
+    assert tp_card_runs[0]["losses"] == tp_card_runs[1]["losses"]
+
+
 # ---- the model zoo: qwen3-14b, phi4-mini, nemotron, moonshot, Jamba ----
 
 ZOO_ARCHS = ("qwen3-14b", "phi4-mini-3.8b", "nemotron-4-15b",

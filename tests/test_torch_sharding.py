@@ -235,15 +235,24 @@ def test_tree_shardings_matched_drop_what_does_not_divide():
 
 
 def test_check_data_parallel_refuses_what_it_would_replicate():
+    """`check_ported` (the data-parallel check until tensor parallelism
+    and FSDP were ported) passes those layouts and refuses the sequence
+    on a mesh axis and the SSM mixers on a wide one, naming the next
+    slice."""
     dp = StandIn((1, 4, 1))
-    ax.check_data_parallel(ax.pure_dp_rules(False), dp)
-    ax.check_data_parallel(ax.base_rules(True), StandIn((2, 2, 1)))
-    for rules, mesh in ((ax.base_rules(False), StandIn((1, 2, 2))),
-                        (ax.fsdp_rules(ax.base_rules(False), False), dp),
-                        (ax.sequence_parallel_rules(False), dp),
-                        (ax.pure_dp_rules(True), StandIn((2, 2, 1)))):
+    dense = ("batch", "seq", "seq_kv", "act_embed", "embed", "heads",
+             "kv_heads", "mlp", "vocab")
+    ax.check_ported(ax.pure_dp_rules(False), dp)
+    ax.check_ported(ax.base_rules(True), StandIn((2, 2, 1)))
+    ax.check_ported(ax.base_rules(False), StandIn((1, 2, 2)), dense)
+    ax.check_ported(ax.fsdp_rules(ax.base_rules(False), False), dp)
+    for rules, mesh, logical in (
+            (ax.sequence_parallel_rules(False), dp, None),
+            (ax.pure_dp_rules(True), StandIn((2, 2, 1)), None),
+            (ax.base_rules(False), StandIn((1, 2, 2)),
+             ("batch", "ssm_heads"))):
         with pytest.raises(NotImplementedError, match="item 11b"):
-            ax.check_data_parallel(rules, mesh)
+            ax.check_ported(rules, mesh, logical)
 
 
 def test_shard_is_the_identity_or_refuses():
@@ -256,4 +265,4 @@ def test_shard_is_the_identity_or_refuses():
     with ax.use_rules(ax.sequence_parallel_rules(False), StandIn((1, 2, 2))):
         assert ax.shard(x, "batch", "seq", "embed") is x
         with pytest.raises(NotImplementedError):
-            ax.shard(x, "batch", "seq", "heads")
+            ax.shard(x, "batch", "seq_kv", "heads")

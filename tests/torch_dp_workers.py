@@ -161,25 +161,47 @@ def one_rank(rank, world, device, start):
 
 
 def refused(world, device):
-    """The layouts the step does not take: (name, the error's type)."""
+    """The layouts the data-parallel step once refused, and those it still
+    refuses, each from qwen3's smoke model (or Mamba2's for an SSM under a
+    wide "model" axis): (name, the `NotImplementedError`'s message or None,
+    the loss of one step on the layout, the one-process step's loss on the
+    same global batch)."""
     cases = []
-    wide = {2: [("model axis", (1, 1, 2), ax.base_rules(False))],
+    wide = {2: [("model axis", (1, 1, 2), ax.base_rules(False)),
+                ("ssm under model", (1, 1, 2), ax.base_rules(False))],
             4: [("model axis", (1, 2, 2), ax.base_rules(False)),
                 ("fsdp", (2, 2, 1),
                  ax.fsdp_rules(ax.base_rules(True), True)),
                 ("sequence parallel", (2, 2, 1),
                  ax.sequence_parallel_rules(True)),
                 ("pure dp multi-pod (seq over pod)", (2, 2, 1),
-                 ax.pure_dp_rules(True))]}[world]
-    model = build_model(get_smoke_config("qwen3-1.7b"), device)
+                 ax.pure_dp_rules(True)),
+                ("ssm under model", (1, 2, 2), ax.base_rules(False))]}[world]
+    cfg = adamw.AdamWConfig(**OPT)
     for name, shape, rules in wide:
+        arch = "mamba2-2.7b" if name.startswith("ssm") else "qwen3-1.7b"
+        model = build_model(get_smoke_config(arch), device)
         mesh = make_test_mesh(shape, NAMES, device.type)
         try:
-            make_train_step(model, adamw.AdamWConfig(), mesh=mesh,
-                            rules=rules)
-            cases.append((name, None))
+            step = make_train_step(model, cfg, mesh=mesh, rules=rules)
         except NotImplementedError as exc:
-            cases.append((name, str(exc)))
+            cases.append((name, str(exc), None, None))
+            continue
+        tokens = global_batch(model.cfg.vocab, 0, 2)
+        n = 1
+        for a in ax.batch_axes(rules):
+            n *= ax.axis_sizes(mesh)[a]
+        k = batch_index(mesh, rules)
+        params = model.init(torch.Generator().manual_seed(0), torch.float32,
+                            model.param_shardings(mesh, rules))
+        _, _, met = step(params, adamw.init(params, opt_shardings(
+            model, mesh, rules)), {"tokens": torch.as_tensor(
+                tokens[k * ROWS // n:(k + 1) * ROWS // n], device=device)})
+        full = model.init(torch.Generator().manual_seed(0), torch.float32)
+        _, _, one = make_train_step(model, cfg)(
+            full, adamw.init(full), {"tokens": torch.as_tensor(
+                tokens, device=device)})
+        cases.append((name, None, float(met["loss"]), float(one["loss"])))
     return cases
 
 
