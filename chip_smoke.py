@@ -105,7 +105,7 @@ read just after:
   losses, ms per step, tokens/s, peak memory and a profiled step;
 * training over several ranks (`dp_train_path`, one process per rank
   through `repro_torch.sharding.ranks.spawn_ranks`): the same
-  Qwen3-1.7B at 14 of its layers and global batch, 3 data-parallel
+  Qwen3-1.7B at 7 of its layers and global batch, 2 data-parallel
   steps under
   `pure_dp_rules(False)` with ZeRO-1 moments, over two gloo ranks
   sharing card 0 and, where several cards are visible, one NCCL rank
@@ -118,8 +118,8 @@ read just after:
 * tensor and expert parallelism over "model" (`tp_train_path`, the same
   rank sets on a (1, W/2, 2) mesh, `base_rules(False)` with ZeRO-1
   moments, each rank holding its blocks): Qwen3-1.7B at full width and
-  14 layers, bf16, 3 steps of the same global batch, and granite-moe at
-  full width and 4 layers, float32, 2 steps; first a scoring call with flash on each
+  7 layers, bf16, 2 steps of the same global batch, and granite-moe at
+  full width and 4 layers, float64, 2 steps; first a scoring call with flash on each
   rank's heads (flash once per layer per rank, gating_topk once per MoE
   layer), then the steps; ms per step, rank 0's idle share, peak per
   rank against the one-process step's, the collectives' bytes per step,
@@ -128,6 +128,24 @@ read just after:
   bitwise equal across ranks; then, at smoke size, `fsdp_rules` and the
   K/V-head fallback, card ranks against CPU ranks; and flash alone at a
   rank's shape (H 8, Hk 4, B 4, S 4096) beside SDPA;
+* serving over a model mesh (`tp_serve_path`, the same rank sets and
+  mesh): Mamba2-2.7B at full width and 32 layers under `base_rules`
+  (ssd_scan once per layer per prefill on each rank's 40 of 80 heads),
+  Qwen3-1.7B at 14 layers under `decode_32k`'s layout (the KV cache's
+  positions split over "model", decode's partial softmaxes merged) and
+  granite-moe at 4 layers under `base_rules` (gating_topk once per layer
+  per prefill and step on the gathered router logits), bf16, each a
+  prefill of 4 x ~1024 tokens and 16-32 decode steps of the one-process
+  run's greedy tokens: prefill ms, decode ms a step, rank 0's idle
+  share, the collectives' bytes per prefill and step, peak per rank
+  against one process, the logits' and gathered caches' gaps against
+  the one-process run within 4x its own distance from float32
+  arithmetic, the logits and replicated caches bitwise across ranks;
+  Mamba2's mixer trained over the ranks (8 layers, float32, its
+  gradients per leaf against one process's); at smoke size, Jamba,
+  `sequence_parallel_rules` and the uneven-heads Mamba2, card ranks
+  against CPU ranks; ssd_scan and gating_topk at a rank's shapes
+  against their plain versions;
 * the model zoo, each configuration at its published widths with bf16
   weights drawn from a generator seeded with 0: the smoke goldens of
   qwen3-14b, phi4-mini-3.8b, nemotron-4-15b, moonshot-v1-16b-a3b and
@@ -542,15 +560,14 @@ def main_path(dev):
     from repro_torch.core.sweep import sweep
     from repro_torch.kernels.placement_score.kernel import placement_score
     axes, combos = fleet_axes(MAIN_SCALE)
-    # one timed run (the kernel check before it is the warm-up), held
-    # bitwise to the profiled repeat below; the separate warm-up run went
-    # in PR 32 for the script's time
+    # one timed run under the profiler (the kernel check before it is the
+    # warm-up); a separate warm-up run and a separate profiled repeat went
+    # for the script's time
     placement_score.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    runs = [sweep(axes, device=dev)]
-    torch.cuda.synchronize()
-    walls = [time.perf_counter() - t0]
+    runs = []
+    wall, busy, n_device, top = profile_run(
+        lambda: runs.append(sweep(axes, device=dev)))
+    walls = [wall]
     launches = [placement_score.launches]
     if launches[0] != runs[0].event_steps:
         raise AssertionError(f"{launches[0]} placement_score launches "
@@ -580,17 +597,15 @@ def main_path(dev):
     print(f"main path: {len(axes)} configurations at scale {MAIN_SCALE} on "
           f"{res.device}, {steps} event steps; wall per run "
           f"{walls[0]:.3f} s ({walls[0] / steps * 1e3:.3f} ms per event "
-          f"step); equal to interpret=True ({plain_wall:.3f} s wall with the "
-          f"plain version); launches {{'placement_score': {launches[0]}}}")
-    wall, busy, n_device, top = profile_run(
-        lambda: runs.append(sweep(axes, device=dev)))
-    assert_same(runs[0], runs[1], "main path profiled repeat")
+          f"step, under the profiler); equal to interpret=True "
+          f"({plain_wall:.3f} s wall with the plain version); launches "
+          f"{{'placement_score': {launches[0]}}}")
     for name, (calls, secs) in top:
         print(f"  device {secs:8.4f} s {calls:8d} calls  {name[:90]}")
     print(f"main path profiled (card activity): {wall:.3f} s wall, device "
           f"busy {busy:.3f} s, idle share {1 - busy / wall:.3f}, "
           f"{n_device} kernels and copies ({n_device / steps:.1f} per event "
-          f"step); the repeat bitwise equal")
+          f"step)")
     return launches[0]
 
 # ------------------------------------------------------- single-hall MC
@@ -764,20 +779,27 @@ def mc_figure_numbers(name, res):
 def mc_main_path(dev, name, axes, kw):
     """One single-hall figure through `mc_sweep` on the card: two timed
     runs (bitwise repeats, one kernel launch per event step; the first is
-    the warm-up, the separate one went in PR 32 for the script's time),
-    an interpret=True run (no launch, the same bits), a profiled run, and
-    the figure's numbers."""
+    the warm-up, the second is profiled: a separate warm-up and a separate
+    profiled run went for the script's time), an interpret=True run (no
+    launch, the same bits), and the figure's numbers."""
     import torch
     from repro_torch.core.mc_sweep import mc_sweep
     from repro_torch.kernels.placement_score.kernel import placement_score
     runs, walls, launches = [], [], []
-    for _ in range(2):
+    for i in range(2):
         placement_score.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = mc_sweep(axes, device=dev, **kw)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            res = mc_sweep(axes, device=dev, **kw)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        else:
+            got = []
+            wall, busy, n_device, top = profile_run(
+                lambda: got.append(mc_sweep(axes, device=dev, **kw)))
+            res = got[0]
+            walls.append(wall)
         launches.append(placement_score.launches)
         runs.append(res)
         if launches[-1] != res.event_steps:
@@ -800,13 +822,11 @@ def mc_main_path(dev, name, axes, kw):
     N = len(axes) * kw["n_trials"]
     print(f"MC {name}: {len(axes)} configurations x {kw['n_trials']} trials "
           f"(N {N}) on {res.device}, {steps} event steps; wall per run "
-          f"{walls[0]:.3f} s (warm-up), {walls[1]:.3f} s ("
+          f"{walls[0]:.3f} s (warm-up), {walls[1]:.3f} s (profiled; "
           f"{walls[0] / steps * 1e3:.3f}, {walls[1] / steps * 1e3:.3f} ms "
           f"per event step); repeats bitwise equal; equal to interpret=True "
           f"({plain_wall:.3f} s wall with the plain version); launches "
           f"{{'placement_score': {launches[0]}}}")
-    wall, busy, n_device, top = profile_run(
-        lambda: mc_sweep(axes, device=dev, **kw))
     for kname, (calls, secs) in top[:5]:
         print(f"  device {secs:8.4f} s {calls:8d} calls  {kname[:90]}")
     print(f"MC {name} profiled (card activity): {wall:.3f} s wall, device "
@@ -940,10 +960,14 @@ def pod_main_path(dev):
     within one bucket; walls, steps, launches, idle share and the
     figure's $/MW."""
     import numpy as np
-    from repro_torch.core.sweep import sweep
     axes, combos = fig17_axes()
     exact, wall_e = timed_sweep(axes, dev)
-    stream, wall_s = timed_sweep(axes, dev, exact_quantiles=False)
+    # the streaming run profiled (a separate profiled repeat went for the
+    # script's time)
+    got = []
+    wall, busy, n_device, top = profile_run(lambda: got.append(
+        timed_sweep(axes, dev, exact_quantiles=False)))
+    stream, wall_s = got[0]
     check_result(exact, len(axes))
     for f in SWEEP_FIELDS:
         if f in ("p50_stranding", "p90_stranding"):
@@ -971,8 +995,6 @@ def pod_main_path(dev):
     for i, (name, pod) in enumerate(combos):
         print(f"  fig17.{name}.pod{pod}: "
               f"eff$/MW={exact.effective_dpm[i] / 1e6:.2f}M")
-    wall, busy, n_device, top = profile_run(
-        lambda: sweep(axes, device=dev, exact_quantiles=False))
     for name, (calls, secs) in top[:5]:
         print(f"  device {secs:8.4f} s {calls:8d} calls  {name[:90]}")
     print(f"pod main path: Fig. 17's pod group, {len(axes)} configurations "
@@ -1245,21 +1267,24 @@ def check_kernel_scenario_shape(dev):
 
 def study_runs(study, what):
     """`study` (a callable returning a list of points) once under
-    `StudySweeps`, then once profiled, the two held equal: (points, the
-    timed run's `StudySweeps`, the profile's line)."""
-    with StudySweeps() as run:
-        pts = study()
-    again = []
-    wall, busy, n_device, top = profile_run(lambda: again.append(study()))
-    same_points(pts, again[0], f"{what} repeat")
+    `StudySweeps` and the profiler (a separate profiled repeat went for
+    the script's time): (points, its `StudySweeps`, the profile's
+    line)."""
+    got = []
+
+    def timed():
+        with StudySweeps() as run:
+            got.append((study(), run))
+    wall, busy, n_device, top = profile_run(timed)
+    pts, run = got[0]
     for name, (calls, secs) in top[:5]:
         print(f"  device {secs:8.4f} s {calls:8d} calls  {name[:90]}")
     line = (f"{run.steps} placement steps = launches ({run.pod_steps} pod "
             f"racks); wall {run.wall:.3f} s = prepare {run.prepare_s:.3f} s "
             f"+ steps {run.steps_s:.3f} s ({run.steps_s / run.steps * 1e3:.3f}"
             f" ms per step) + other "
-            f"{run.wall - run.prepare_s - run.steps_s:.3f} s; profiled "
-            f"repeat equal: {wall:.3f} s wall, device busy {busy:.3f} s, "
+            f"{run.wall - run.prepare_s - run.steps_s:.3f} s (profiled); "
+            f"{wall:.3f} s wall, device busy {busy:.3f} s, "
             f"idle share {1 - busy / wall:.3f}, {n_device} kernels and "
             f"copies ({n_device / run.steps:.1f} per step)")
     return pts, run, line
@@ -3821,11 +3846,12 @@ def training_section(dev, timings):
 # collectives, the pipeline and resharding at smoke size on the same ranks
 # ---------------------------------------------------------------------------
 
-# Qwen3-1.7B at full width and 14 of its 28 layers (28 and 5 steps until
-# the tensor-parallel path came), the global batch of 8 x 256 split over
-# the ranks, 3 steps under pure_dp_rules(False), whose
-# opt_rules shard the moments over "data" (ZeRO-1)
-DP_MAIN = dict(batch=8, seq=256, lr=3e-3, steps=3, layers=14)
+# Qwen3-1.7B at full width and 7 of its 28 layers (28 layers and 5 steps
+# until the tensor-parallel path came, 14 and 3 until serving over ranks
+# came), the global batch of 8 x 256 split over the ranks, 2 steps under
+# pure_dp_rules(False), whose opt_rules shard the moments over "data"
+# (ZeRO-1)
+DP_MAIN = dict(batch=8, seq=256, lr=3e-3, steps=2, layers=7)
 DP_NAMES = ("pod", "data", "model")
 # The first step's loss against the one-process step on the same
 # (concatenated) global batch.  Both run the same bf16 model on the same
@@ -4124,8 +4150,8 @@ def dp_train_path(timings):
 
 # Each arch at full width under base_rules(False) on (1, W/2, 2) with
 # opt_rules' ZeRO-1 moments, remat "full", the global batch 8 x 256:
-# Qwen3-1.7B at 14 of its 28 layers (the serving paths' depth), 3 steps,
-# bf16; granite-moe at 4 of 24, 2 steps (E 32 over 2 ranks, its router's
+# Qwen3-1.7B at 7 of its 28 layers, 2 steps (14 and 3 until serving over
+# ranks came), bf16; granite-moe at 4 of 24, 2 steps (E 32 over 2 ranks, its router's
 # gathered logits, vocab 49155 replicated: it does not divide), float64.
 # At this random init on the Zipf batch granite's gradient follows its
 # near-tied top-k routes, so any rounding moves it: on an H100 80GB HBM3
@@ -4137,7 +4163,7 @@ def dp_train_path(timings):
 # in float64, where its gradients are gated per leaf (TP_LEAF_RTOL).
 # Its TP scoring call, whose flash takes bf16 and float32, runs on
 # float32 weights from the same seed.
-TP_MAIN = {"qwen3-1.7b": dict(layers=14, steps=3, dtype="bfloat16"),
+TP_MAIN = {"qwen3-1.7b": dict(layers=7, steps=2, dtype="bfloat16"),
            "granite-moe-1b-a400m": dict(layers=4, steps=2, dtype="float64")}
 TP_BATCH = (8, 256)
 # warmup 1: step 1 updates at the full lr, above a bf16 ulp for most
@@ -4156,7 +4182,10 @@ TP_LOSS_RTOL, TP_GRAD_NORM_RTOL = 1e-3, 1e-2
 # statistics, RoPE, the cross-entropy's logits) round the two sides'
 # float64 sums apart by ~6e-8, and `probes/tp_grads.py` read at most
 # 2.8e-7 (H100 80GB HBM3, 700 W); a wrong block or gradient is O(1).
-TP_LEAF_RTOL = {"float64": 1e-5}
+# float32 (Mamba2's steps in `tp_serve_path`): the forward's float32 sums
+# reorder by ~1e-7 and eight random layers may amplify that ~10³, where a
+# wrong block or gradient is O(1).
+TP_LEAF_RTOL = {"float64": 1e-5, "float32": 1e-3}
 # After step 1 each parameter element against the one-process step's, in
 # units of lr beyond two ulps of the element in its type (each side's
 # store rounds once): Adam's first update is lr·(sign(g) + wd·p) wherever
@@ -4261,7 +4290,7 @@ def kept_grads(store):
         adamw.update = orig
 
 
-def tp_arch_run(arch, rank, world, dev, mesh, rules, counters):
+def tp_arch_run(arch, rank, world, dev, mesh, rules, counters, spec=None):
     """One arch of `tp_train_rank`: on rank 0 the one-process scoring
     call (flash) and train step on the same rows, from the same seed;
     then on every rank the tensor-parallel scoring call on its blocks,
@@ -4270,7 +4299,8 @@ def tp_arch_run(arch, rank, world, dev, mesh, rules, counters):
     collectives' bytes per step counted), the gradients of step 1 per
     leaf against the one-process step's where `TP_LEAF_RTOL` names the
     type, the parameters after step 1 against the one-process step's,
-    the replicated leaves' bits across the ranks."""
+    the replicated leaves' bits across the ranks.  `spec` (layers, steps,
+    dtype) defaults to `TP_MAIN[arch]`."""
     import gc
     import statistics
     from dataclasses import replace
@@ -4285,12 +4315,13 @@ def tp_arch_run(arch, rank, world, dev, mesh, rules, counters):
     from repro_torch.sharding import axes as ax
     from repro_torch.sharding import ranks
     from repro_torch.train.step import make_train_step, opt_shardings
-    steps = TP_MAIN[arch]["steps"]
-    dtype = getattr(torch, TP_MAIN[arch]["dtype"])
+    spec = TP_MAIN[arch] if spec is None else spec
+    steps = spec["steps"]
+    dtype = getattr(torch, spec["dtype"])
     # flash takes bf16 and float32
     score_dtype = torch.float32 if dtype == torch.float64 else dtype
-    leaf_rtol = TP_LEAF_RTOL.get(TP_MAIN[arch]["dtype"])
-    cfg = replace(get_config(arch), n_layers=TP_MAIN[arch]["layers"])
+    leaf_rtol = TP_LEAF_RTOL.get(spec["dtype"])
+    cfg = replace(get_config(arch), n_layers=spec["layers"])
     B, S = TP_BATCH
     n_data = ax.axis_sizes(mesh)["data"]
     k = mesh.get_coordinate()[1]
@@ -4521,18 +4552,106 @@ def tp_train_rank(rank, world, dev):
     return out
 
 
+def tp_train_report(label, arch, spec, res):
+    """Print `tp_arch_run`'s results of one arch (`res`, per rank) and
+    return whether they pass `tp_train_path`'s gates."""
+    import numpy as np
+    B, S = TP_BATCH
+    r0 = res[0]
+    steps, layers = spec["steps"], spec["layers"]
+    first, one = r0["history"][0], r0["one_process"]
+    gap = abs(first["loss"] - one["loss"]) / abs(one["loss"])
+    norm_gap = abs(first["grad_norm"] - one["grad_norm"]) / one[
+        "grad_norm"]
+    score_gap = abs(r0["tp_score"] - r0["one_score"]) / abs(
+        r0["one_score"])
+    share, which = r0["param_gap"]
+    flash_gap = abs(r0["tp_score"] - r0["tp_plain_score"]) / abs(
+        r0["tp_plain_score"])
+    score_dtype = r0["score_dtype"]
+    flash_tol = TP_FLASH_RTOL[score_dtype]
+    leaf_gaps = r0.get("leaf_gaps")
+    losses = [h["loss"] for h in r0["history"]]
+    print(f"tp train path ({label}): {arch} full width, {layers} "
+          f"layers, {spec['dtype']}, global batch {B} x {S}, "
+          f"{steps} steps, "
+          f"base_rules(False) with ZeRO-1 moments, remat full; "
+          f"losses {[round(v, 4) for v in losses]}")
+    for r, a in enumerate(res):
+        per = ", ".join(f"{n} {b / 2 ** 20:.1f} MiB"
+                        for n, b in sorted(a["traffic"][-1].items()))
+        print(f"  rank {r}: steps "
+              f"{[round(w * 1e3, 1) for w in a['walls']]} ms; peak "
+              f"allocated {a['peak_gib']:.2f} GiB above what the "
+              f"rank held (its blocks {a['param_gib']:.2f} GiB,"
+              f" moments {a['opt_gib']:.2f} GiB) against the "
+              f"one-process step's {r0['one_peak_gib']:.2f} GiB "
+              f"above its parameters; collectives per step {per}; "
+              f"{a['n_sharded']} of {a['n_leaves']} leaves sharded;"
+              f" replicated leaves bitwise equal across ranks "
+              f"{a['replicated_equal']}; flash launches in the TP "
+              f"scoring call {a['score_launches']['flash_attention']}"
+              f", gating {a['score_launches']['gating_topk']}, "
+              f"ssd_scan {a['score_launches']['ssd_scan']}; "
+              f"kernel launches in training {a['launches']}")
+    for name, calls, t in r0["top"]:
+        print(f"  device {t:8.4f} s {calls:8d} calls  {name[:90]}")
+    if leaf_gaps is not None:
+        print(f"  step 1's gradient per leaf against the one-process "
+              f"step's, |tp - one| / |one| (gated at "
+              f"{TP_LEAF_RTOL[spec['dtype']]}): " + ", ".join(
+                  f"{n} {v:.3e}" for n, v in leaf_gaps.items()))
+    print(f"tp train path ({label}) {arch}: step 1 "
+          f"{r0['walls'][0] * 1e3:.1f} ms, steps 2-{steps} median "
+          f"{r0['median_ms']:.1f} ms; {B * S * steps / r0['wall']:,.0f}"
+          f" tokens/s; rank 0's profiled step {steps} "
+          f"{r0['prof_wall'] * 1e3:.1f} ms wall, device busy "
+          f"{r0['busy'] * 1e3:.1f} ms, idle share "
+          f"{1 - r0['busy'] / r0['prof_wall']:.3f}; first-step loss "
+          f"{first['loss']:.6f} against the one-process step's "
+          f"{one['loss']:.6f} (relative {gap:.3e}, gated at "
+          f"{TP_LOSS_RTOL}), grad_norm {first['grad_norm']:.6f} "
+          f"against {one['grad_norm']:.6f} (relative "
+          f"{norm_gap:.3e}, gated at {TP_GRAD_NORM_RTOL}); after "
+          f"step 1 at most {share:.2e} of a leaf's elements beyond "
+          f"1e-2·lr (leaf {which}, gated at {TP_PARAM_SHARE}); the "
+          f"TP scoring call ({score_dtype}) with flash "
+          f"{r0['tp_score']:.6f} against one process's "
+          f"{r0['one_score']:.6f} (relative {score_gap:.3e}, gated "
+          f"at {TP_LOSS_RTOL}) and against the plain attention and "
+          f"router on the same blocks {r0['tp_plain_score']:.6f} "
+          f"(relative {flash_gap:.3e}, gated at {flash_tol})")
+    ok = (gap <= TP_LOSS_RTOL and score_gap <= TP_LOSS_RTOL
+          and flash_gap <= flash_tol
+          and norm_gap <= TP_GRAD_NORM_RTOL
+          and share <= TP_PARAM_SHARE
+          and all(np.isfinite(losses)))
+    if spec["dtype"] in TP_LEAF_RTOL:
+        ok &= (leaf_gaps is not None and len(leaf_gaps) == r0[
+            "n_leaves"] and max(leaf_gaps.values())
+            <= TP_LEAF_RTOL[spec["dtype"]])
+    ssm = arch.startswith("mamba2")
+    for a in res:
+        want = {"flash_attention": 0 if ssm else layers,
+                "gating_topk": layers if "moe" in arch else 0,
+                "ssd_scan": layers if ssm else 0}
+        ok &= (a["replicated_equal"] and a["n_sharded"] > 0
+               and all(a["score_launches"][n] == v
+                       for n, v in want.items())
+               and not any(a["launches"].values()))
+    return ok
+
+
 def tp_train_path(timings):
     """Qwen3-1.7B and granite-moe trained tensor- and expert-parallel on
     each of `tp_layouts`' rank sets (`spawn_ranks`, one process per rank),
     with the smoke checks beside them; fails on any rank's error or failed
     check.  Returns the flash launches of each TP scoring call, per rank."""
     import gc
-    import numpy as np
     import torch
     from repro_torch.sharding.ranks import spawn_ranks
     gc.collect()
     torch.cuda.empty_cache()
-    B, S = TP_BATCH
     launches = {}
     for backend, device, world in tp_layouts():
         label = (f"{backend}, {world} ranks on "
@@ -4543,87 +4662,8 @@ def tp_train_path(timings):
         secs = time.perf_counter() - t0
         ok = True
         for arch, spec in TP_MAIN.items():
-            r0 = res[0][arch]
-            steps, layers = spec["steps"], spec["layers"]
-            first, one = r0["history"][0], r0["one_process"]
-            gap = abs(first["loss"] - one["loss"]) / abs(one["loss"])
-            norm_gap = abs(first["grad_norm"] - one["grad_norm"]) / one[
-                "grad_norm"]
-            score_gap = abs(r0["tp_score"] - r0["one_score"]) / abs(
-                r0["one_score"])
-            share, which = r0["param_gap"]
-            flash_gap = abs(r0["tp_score"] - r0["tp_plain_score"]) / abs(
-                r0["tp_plain_score"])
-            score_dtype = r0["score_dtype"]
-            flash_tol = TP_FLASH_RTOL[score_dtype]
-            leaf_gaps = r0.get("leaf_gaps")
-            losses = [h["loss"] for h in r0["history"]]
-            print(f"tp train path ({label}): {arch} full width, {layers} "
-                  f"layers, {spec['dtype']}, global batch {B} x {S}, "
-                  f"{steps} steps, "
-                  f"base_rules(False) with ZeRO-1 moments, remat full; "
-                  f"losses {[round(v, 4) for v in losses]}")
-            for r, rr in enumerate(res):
-                a = rr[arch]
-                per = ", ".join(f"{n} {b / 2 ** 20:.1f} MiB"
-                                for n, b in sorted(a["traffic"][-1].items()))
-                print(f"  rank {r}: steps "
-                      f"{[round(w * 1e3, 1) for w in a['walls']]} ms; peak "
-                      f"allocated {a['peak_gib']:.2f} GiB above what the "
-                      f"rank held (its blocks {a['param_gib']:.2f} GiB,"
-                      f" moments {a['opt_gib']:.2f} GiB) against the "
-                      f"one-process step's {r0['one_peak_gib']:.2f} GiB "
-                      f"above its parameters; collectives per step {per}; "
-                      f"{a['n_sharded']} of {a['n_leaves']} leaves sharded;"
-                      f" replicated leaves bitwise equal across ranks "
-                      f"{a['replicated_equal']}; flash launches in the TP "
-                      f"scoring call {a['score_launches']['flash_attention']}"
-                      f", gating {a['score_launches']['gating_topk']}; "
-                      f"kernel launches in training {a['launches']}")
-            for name, calls, t in r0["top"]:
-                print(f"  device {t:8.4f} s {calls:8d} calls  {name[:90]}")
-            if leaf_gaps is not None:
-                print(f"  step 1's gradient per leaf against the one-process "
-                      f"step's, |tp - one| / |one| (gated at "
-                      f"{TP_LEAF_RTOL[spec['dtype']]}): " + ", ".join(
-                          f"{n} {v:.3e}" for n, v in leaf_gaps.items()))
-            print(f"tp train path ({label}) {arch}: step 1 "
-                  f"{r0['walls'][0] * 1e3:.1f} ms, steps 2-{steps} median "
-                  f"{r0['median_ms']:.1f} ms; {B * S * steps / r0['wall']:,.0f}"
-                  f" tokens/s; rank 0's profiled step {steps} "
-                  f"{r0['prof_wall'] * 1e3:.1f} ms wall, device busy "
-                  f"{r0['busy'] * 1e3:.1f} ms, idle share "
-                  f"{1 - r0['busy'] / r0['prof_wall']:.3f}; first-step loss "
-                  f"{first['loss']:.6f} against the one-process step's "
-                  f"{one['loss']:.6f} (relative {gap:.3e}, gated at "
-                  f"{TP_LOSS_RTOL}), grad_norm {first['grad_norm']:.6f} "
-                  f"against {one['grad_norm']:.6f} (relative "
-                  f"{norm_gap:.3e}, gated at {TP_GRAD_NORM_RTOL}); after "
-                  f"step 1 at most {share:.2e} of a leaf's elements beyond "
-                  f"1e-2·lr (leaf {which}, gated at {TP_PARAM_SHARE}); the "
-                  f"TP scoring call ({score_dtype}) with flash "
-                  f"{r0['tp_score']:.6f} against one process's "
-                  f"{r0['one_score']:.6f} (relative {score_gap:.3e}, gated "
-                  f"at {TP_LOSS_RTOL}) and against the plain attention and "
-                  f"router on the same blocks {r0['tp_plain_score']:.6f} "
-                  f"(relative {flash_gap:.3e}, gated at {flash_tol})")
-            ok &= (gap <= TP_LOSS_RTOL and score_gap <= TP_LOSS_RTOL
-                   and flash_gap <= flash_tol
-                   and norm_gap <= TP_GRAD_NORM_RTOL
-                   and share <= TP_PARAM_SHARE
-                   and all(np.isfinite(losses)))
-            if spec["dtype"] in TP_LEAF_RTOL:
-                ok &= (leaf_gaps is not None and len(leaf_gaps) == r0[
-                    "n_leaves"] and max(leaf_gaps.values())
-                    <= TP_LEAF_RTOL[spec["dtype"]])
-            for rr in res:
-                a = rr[arch]
-                want = {"flash_attention": layers,
-                        "gating_topk": layers if "moe" in arch else 0}
-                ok &= (a["replicated_equal"] and a["n_sharded"] > 0
-                       and all(a["score_launches"][n] == v
-                               for n, v in want.items())
-                       and not any(a["launches"].values()))
+            ok &= tp_train_report(label, arch, spec,
+                                  [rr[arch] for rr in res])
             launches[f"{arch} {backend}"] = [
                 rr[arch]["score_launches"]["flash_attention"] for rr in res]
         for c in res[0]["smoke"]:
@@ -4644,6 +4684,485 @@ def tp_train_path(timings):
                                  "checks")
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# serving over a model mesh: prefill and decode under tensor and expert
+# parallelism, the KV cache's sequence over "model", the SSM mixers over a
+# wide "model" axis
+# ---------------------------------------------------------------------------
+
+# Each arch at full width on random bf16 weights (seed 0), the kernels'
+# ops on, over `tp_layouts`' rank sets on a (1, W/2, 2) mesh: its depth,
+# its layout, the prompt's rows x tokens, the caches' length and the
+# decode steps.  Mamba2 at the serving paths' 32 of 64 layers under
+# `base_rules` (40 of its 80 SSM heads a rank); Qwen3-1.7B at 14 of 28
+# layers under `decode_32k`'s layout (the reference dry-run's: the KV
+# sequence over "model", K/V heads whole), 2048 positions, 1024 a rank, a
+# prompt of 1016, so that steps 9-16 write into rank 1's slice;
+# granite-moe at 4 of 24 layers under `base_rules` (E 32 over the ranks,
+# vocab 49155 replicated).
+TP_SERVE = {
+    "mamba2-2.7b": dict(layers=32, layout="base", rows=4, prompt=1024,
+                        max_seq=1056, steps=32),
+    "qwen3-1.7b": dict(layers=14, layout="decode_32k", rows=4,
+                       prompt=1016, max_seq=2048, steps=16),
+    "granite-moe-1b-a400m": dict(layers=4, layout="base", rows=4,
+                                 prompt=1024, max_seq=1040, steps=16),
+}
+# Mamba2's SSM mixer trained over the ranks (`tp_arch_run`, gated as
+# `tp_train_path`'s archs): 8 layers, 2 steps of the global batch 8 x 256,
+# in float32.  In bf16 (on an H100 80GB HBM3 at 700 W) the step's
+# grad_norm read 8.2e-3 from one process's and 3.85e-2 of a leaf moved
+# beyond 1e-2·lr: at this random init bf16 rounding, not the layout,
+# sets those numbers, so float32 checks the mixer's gradient per leaf
+# (TP_LEAF_RTOL)
+TP_SERVE_TRAIN = {"mamba2-2.7b": dict(layers=8, steps=2, dtype="float32")}
+# The logits' and the gathered caches' largest gap against the
+# one-process run (same weights, same fed tokens), relative to the
+# one-process run's largest magnitude, at the prefill and at every step.
+# A rank's run rounds the same bf16 model another way: its row-parallel
+# partial sums round to bf16 before they are summed, the merged decode
+# softmax sums in another order.  The one-process run's own distance from
+# the same weights computed in float32 (no activation rounded to bf16)
+# is measured in the same call, point by point and leaf by leaf: the
+# rank's extra roundings are a few of the many that distance is made
+# of, in a model that does not amplify them; random-weight Mamba2
+# amplifies any float32 reordering into O(1) logits (`SERVE_GAP_FACTOR`'s
+# note), where both distances saturate.  The layout rounds the
+# residual's updates about as often as the bf16 run itself does: a CPU
+# rehearsal at smoke size (2 layers, two gloo ranks) read gaps of 0.94-1.2
+# times that distance.  So each gap is gated at TP_SERVE_FACTOR x that
+# distance, and never below TP_SERVE_FLOOR: a wrong head, expert,
+# vocabulary block or cache slice moves a non-amplifying model's logits
+# by O(1) of their largest.
+TP_SERVE_FACTOR = 4.0
+TP_SERVE_FLOOR = 1e-3
+# Smoke size, card ranks against CPU ranks of the same layout, float32,
+# each decode step from the CPU ranks' caches: `test_torch_tp_serve.py`'s
+# tolerances, |card - cpu| <= 1e-5 |cpu| + 1e-5 + 1e-5 max |cpu|, the
+# atol 1e-3 for the archs whose smoke attention has no qk-norm
+TP_SERVE_SMOKE_ATOL = {"jamba-1.5-large-398b": 1e-3}
+
+
+def tp_serve_rules(layout):
+    """The rules of a layout name: "base", "decode_32k", "seq_parallel"."""
+    from repro_torch.sharding import axes as ax
+    base = ax.base_rules(False)
+    if layout == "decode_32k":
+        return dict(base, seq_kv="model", kv_heads=None)
+    if layout == "seq_parallel":
+        return ax.sequence_parallel_rules(False)
+    return base
+
+
+def rel_gap(got, want):
+    """max |got - want| / max |want|, in float32."""
+    want = want.float()
+    return float((got.float() - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
+
+
+def cache_leaves(tree):
+    """The leaves of a cache tree (dicts by key, then NamedTuple fields)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in cache_leaves(tree[k])]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in cache_leaves(v)]
+    return [tree]
+
+
+def cache_copy(tree, dev):
+    """A copy on `dev` of a cache tree of plain tensors."""
+    if isinstance(tree, dict):
+        return {k: cache_copy(v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(cache_copy(v, dev) for v in tree))
+    return tree.to(dev, copy=True)
+
+
+def float32_tree(tree):
+    """A nested dict of tensors, each cast to float32 (the same values)."""
+    import torch
+    return {k: float32_tree(v) if isinstance(v, dict) else
+            v.to(torch.float32) for k, v in tree.items()}
+
+
+def serve_run(model, params, tokens, max_seq, start, steps, feed=None,
+              fed=None):
+    """`Model.prefill` of `tokens`, then `steps` decode steps from
+    position `start`, each synchronised: greedy (its tokens written into
+    `fed`, [steps, rows, 1] on the CPU) or of `feed`'s tokens.  Returns
+    (logits per point, caches, prefill s, decode s per step)."""
+    import torch
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(params, {"tokens": tokens}, max_seq)
+    torch.cuda.synchronize()
+    prefill_s, step_s, points = time.perf_counter() - t0, [], [logits]
+    for i in range(steps):
+        tok = feed[i] if feed is not None else logits.argmax(-1, True)
+        if fed is not None:
+            fed[i] = tok.cpu()
+        t0 = time.perf_counter()
+        logits, caches = model.decode_step(params, tok, start + i, caches)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        points.append(logits)
+    return points, caches, prefill_s, step_s
+
+
+def tp_serve_arch(arch, spec, rank, world, dev, mesh, counters):
+    """One arch of `tp_serve_rank`: on rank 0 the one-process run (bf16,
+    greedy: its tokens feed every run) and its twin on the same weights
+    cast to float32 (the bf16 arithmetic's own reach); then on
+    every rank the run under the layout on its blocks, profiled on rank
+    0, with the kernels' launches and the collectives' bytes per prefill
+    and per step; its logits and gathered caches against the one-process
+    run's on rank 0; the logits and the caches the rules replicate over
+    "model" bitwise across the ranks that hold them."""
+    import gc
+    import statistics
+    from dataclasses import replace
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.sharding import axes as ax
+    from repro_torch.sharding import ranks
+    rules = tp_serve_rules(spec["layout"])
+    cfg = replace(get_config(arch), n_layers=spec["layers"],
+                  use_flash_kernel=True)
+    model = build_model(cfg, dev)
+    B, S, steps, max_seq = (spec["rows"], spec["prompt"], spec["steps"],
+                            spec["max_seq"])
+    w = B // ax.axis_sizes(mesh)["data"]
+    lo = mesh.get_coordinate()[1] * w
+    tokens = torch.as_tensor(np.random.default_rng(34).integers(
+        0, cfg.vocab, (B, S)), device=dev)
+
+    def seed():
+        return torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    fed = torch.zeros((steps, B, 1), dtype=torch.int64)
+    if rank == 0:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        one = model.init(seed(), torch.bfloat16)
+        with torch.no_grad():
+            one_points, caches, one_prefill, one_steps = serve_run(
+                model, one, tokens, max_seq, S, steps, fed=fed)
+        out["one_peak_gib"] = (torch.cuda.max_memory_allocated()
+                               - held) / 2 ** 30
+        out.update(one_prefill_ms=one_prefill * 1e3,
+                   one_decode_ms=statistics.median(one_steps) * 1e3)
+        one_caches = cache_leaves(caches)
+        del one, caches
+        w32 = float32_tree(model.init(seed(), torch.bfloat16))
+        with torch.no_grad():
+            points32, caches32, _, _ = serve_run(
+                model, w32, tokens, max_seq, S, steps,
+                feed=fed.to(dev))
+        out["reach"] = [rel_gap(a, b) for a, b in zip(points32,
+                                                      one_points)]
+        out["cache_reach"] = [rel_gap(a, b) for a, b in zip(
+            cache_leaves(caches32), one_caches)]
+        del w32, caches32, points32
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks.all_sum_(fed)             # rank 0's greedy tokens, every rank
+    feed = fed.to(dev)
+    dist.barrier()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    params = model.init(seed(), torch.bfloat16,
+                        model.param_shardings(mesh, rules))
+    out["param_gib"] = (torch.cuda.memory_allocated() - held) / 2 ** 30
+    mine = tokens[lo:lo + w]
+    with ax.use_rules(rules, mesh), torch.no_grad():
+        model.prefill(params, {"tokens": mine[:, :128]}, max_seq)
+        torch.cuda.synchronize()
+        dist.barrier()
+        for c in counters.values():
+            c.launches = 0
+        launches, traffic = [], []
+        real_prefill, real_decode = model.prefill, model.decode_step
+
+        def counted(fn):
+            def call(*args):
+                for c in counters.values():
+                    c.launches = 0
+                ranks.traffic.clear()
+                res = fn(*args)
+                launches.append({n: c.launches for n, c in
+                                 counters.items() if c.launches})
+                traffic.append(dict(ranks.traffic))
+                return res
+            return call
+        model.prefill, model.decode_step = (counted(real_prefill),
+                                            counted(real_decode))
+        try:
+            with (profile(activities=[ProfilerActivity.CUDA])
+                  if rank == 0 else contextlib.nullcontext()) as prof:
+                t0 = time.perf_counter()
+                points, caches, prefill_s, step_s = serve_run(
+                    model, params, mine, max_seq, S, steps,
+                    feed=feed[:, lo:lo + w])
+                wall = time.perf_counter() - t0
+        finally:
+            model.prefill, model.decode_step = real_prefill, real_decode
+        out.update(prefill_ms=prefill_s * 1e3,
+                   decode_ms=statistics.median(step_s) * 1e3,
+                   launches=launches, traffic=traffic,
+                   peak_gib=(torch.cuda.max_memory_allocated() - held)
+                   / 2 ** 30)
+        if rank == 0:
+            busy, _ = device_activity(prof)
+            out.update(busy=busy, wall=wall)
+            out["gaps"] = [rel_gap(a, b[lo:lo + w])
+                           for a, b in zip(points, one_points)]
+            out["tokens_equal"] = sum(
+                bool(torch.equal(p.argmax(-1), feed[i, lo:lo + w, 0]))
+                for i, p in enumerate(points[:-1]))
+            del one_points
+        group = mesh.get_group("model")
+        sums = torch.stack([p.view(torch.int32).sum(dtype=torch.int64)
+                            for p in points])
+        same = [torch.equal(ranks.all_max_(sums.clone(), group),
+                            -ranks.all_max_(-sums, group))]
+        leaves = cache_leaves(caches)
+        gaps = []
+        for i, leaf in enumerate(leaves):
+            spec_ = ranks.sharding_of(leaf).spec
+            if "model" not in [a for e in spec_ for a in ax._names(e)]:
+                x = leaf.to_local()
+                v = x.view(torch.int16) if x.element_size() == 2 else \
+                    x.view(torch.int32)
+                s = v.sum(dtype=torch.int64).reshape(1)
+                same.append(torch.equal(ranks.all_max_(s.clone(), group),
+                                        -ranks.all_max_(-s, group)))
+            full = ranks.gather_dtensor(leaf)
+            if rank == 0:
+                gaps.append(rel_gap(full, one_caches[i]))
+            del full
+        out.update(bitwise_across_ranks=all(same), n_cache_leaves=len(
+            leaves), n_cache_sharded=sum(
+                any(ax.axis_sizes(mesh)[a] > 1 for e in
+                    ranks.sharding_of(x).spec for a in ax._names(e))
+                for x in leaves))
+        if rank == 0:
+            out["cache_gaps"] = gaps
+            del one_caches
+    del params, caches, points
+    return out
+
+
+def tp_serve_smoke(rank, world, dev):
+    """At smoke size, float32, TF32 off: Jamba's period stack under
+    `base_rules(False)` on (1, W/2, 2), `sequence_parallel_rules(False)`
+    on (1, 1, W) (Jamba) and the uneven-heads Mamba2 (3 heads
+    of 32) on (1, W/2, 2), each a prefill of 4 x 6 tokens and 3 decode
+    steps on the card's ranks and on a mesh of the same ranks on the CPU
+    (gloo), each card step from the CPU ranks' caches before it: (name,
+    the largest logit gap over its bound)."""
+    from dataclasses import replace
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.api import build_model, like_blocks, local_blocks
+    from repro_torch.sharding import axes as ax
+    cases = [("base", "jamba-1.5-large-398b", (1, world // 2, 2), {}),
+             ("seq_parallel", "jamba-1.5-large-398b", (1, 1, world), {}),
+             ("base", "mamba2-2.7b", (1, world // 2, 2),
+              {"d_model": 48, "ssm_headdim": 32})]
+    rng = np.random.default_rng(35)
+    tokens = rng.integers(0, 512, (4, 6))
+    steps = rng.integers(0, 512, (3, 4, 1))
+    out = []
+    for layout, arch, shape, changes in cases:
+        cfg = replace(get_smoke_config(arch), use_flash_kernel=True,
+                      **changes)
+        rules = tp_serve_rules(layout)
+        points, before = [], []
+        for d in (torch.device("cpu"), dev):
+            mesh = make_test_mesh(shape, DP_NAMES, d.type)
+            model = build_model(cfg, d)
+            params = model.init(torch.Generator().manual_seed(0),
+                                torch.float32,
+                                model.param_shardings(mesh, rules))
+            n = 1
+            for a in ax.batch_axes(rules):
+                n *= ax.axis_sizes(mesh)[a]
+            k = mesh.get_coordinate()[1] if n > 1 else 0
+            rows = slice(k * 4 // n, (k + 1) * 4 // n)
+            with ax.use_rules(rules, mesh), torch.no_grad():
+                logits, caches = model.prefill(params, {
+                    "tokens": torch.as_tensor(tokens[rows], device=d)}, 16)
+                got = [logits.cpu()]
+                for i in range(3):
+                    if len(points) == 0:        # the CPU ranks' run
+                        before.append(cache_copy(local_blocks(caches), d))
+                    else:
+                        caches = like_blocks(cache_copy(before[i], d),
+                                             caches)
+                    logits, caches = model.decode_step(params, torch.as_tensor(
+                        steps[i, rows], device=d), 6 + i, caches)
+                    got.append(logits.cpu())
+            points.append(got)
+        atol = TP_SERVE_SMOKE_ATOL.get(arch, 1e-5)
+        worst = max(float(((c - h).abs() / (1e-5 * h.abs() + atol + 1e-5
+                                             * h.abs().max())).max())
+                    for h, c in zip(*points))
+        out.append((f"{layout} {arch}{' uneven heads' if changes else ''} "
+                    f"{shape}", worst))
+    return out
+
+
+def tp_serve_rank(rank, world, dev):
+    """One rank of `tp_serve_path`: `tp_serve_arch` for each arch of
+    `TP_SERVE`, Mamba2's train steps (`tp_arch_run`), then
+    `tp_serve_smoke`.  Returns numbers only."""
+    import gc
+    import torch
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.sharding import axes as ax
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = kernel_counters()
+    mesh = make_test_mesh((1, world // 2, 2), DP_NAMES, dev.type)
+    out = {}
+    for arch, spec in TP_SERVE.items():
+        out[arch] = tp_serve_arch(arch, spec, rank, world, dev, mesh,
+                                  counters)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["train"] = {arch: tp_arch_run(arch, rank, world, dev, mesh,
+                                      ax.base_rules(False), counters, spec)
+                    for arch, spec in TP_SERVE_TRAIN.items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["smoke"] = tp_serve_smoke(rank, world, dev)
+    return out
+
+
+def tp_serve_report(label, arch, spec, res):
+    """Print one arch's `tp_serve_arch` results (`res`, per rank) and
+    return whether they pass the phase's gates."""
+    r0 = res[0]
+    layers, steps = spec["layers"], spec["steps"]
+    ssm, moe = arch.startswith("mamba2"), "moe" in arch
+    bound = [max(TP_SERVE_FLOOR, TP_SERVE_FACTOR * r) for r in r0["reach"]]
+    cbound = [max(TP_SERVE_FLOOR, TP_SERVE_FACTOR * r)
+              for r in r0["cache_reach"]]
+    print(f"tp serve path ({label}): {arch} full width, {layers} layers, "
+          f"bf16, {spec['layout']} layout, prompt {spec['rows']} x "
+          f"{spec['prompt']}, caches of {spec['max_seq']}, {steps} decode "
+          f"steps of the one-process run's greedy tokens")
+    ok = True
+    for r, a in enumerate(res):
+        pre, dec = a["traffic"][0], a["traffic"][-1]
+        def fmt(t):
+            return ", ".join(f"{n} {b / 2 ** 20:.3f} MiB"
+                             for n, b in sorted(t.items()))
+        print(f"  rank {r}: prefill {a['prefill_ms']:.1f} ms, decode "
+              f"median {a['decode_ms']:.2f} ms a step; peak allocated "
+              f"{a['peak_gib']:.2f} GiB above what the rank held (its "
+              f"blocks {a['param_gib']:.2f} GiB) against the one-process "
+              f"run's {r0['one_peak_gib']:.2f} GiB; collectives per "
+              f"prefill {fmt(pre)}, per decode step {fmt(dec)}; kernel "
+              f"launches per prefill {a['launches'][0]}, per decode step "
+              f"{a['launches'][1:3]}...; logits and the caches the rules "
+              f"replicate over 'model' bitwise across the ranks "
+              f"{a['bitwise_across_ranks']}; {a['n_cache_sharded']} of "
+              f"{a['n_cache_leaves']} cache leaves sharded")
+        want_pre = {"ssd_scan": layers} if ssm else (
+            {"gating_topk": layers} if moe else {})
+        want_dec = {"gating_topk": layers} if moe else {}
+        ok &= (a["launches"][0] == want_pre
+               and all(x == want_dec for x in a["launches"][1:])
+               and len(a["launches"]) == steps + 1
+               and a["bitwise_across_ranks"] and a["n_cache_sharded"] > 0)
+    gaps, cgaps = r0["gaps"], r0["cache_gaps"]
+    print(f"  logits' largest gap against the one-process run, relative to "
+          f"its largest |logit| (prefill, then each step): "
+          + ", ".join(f"{g:.2e}" for g in gaps)
+          + "; the one-process run's own distance from its weights in "
+          "float32: "
+          + ", ".join(f"{g:.2e}" for g in r0["reach"]))
+    print(f"  gathered caches against the one-process run's, per leaf: "
+          + ", ".join(f"{g:.2e}" for g in cgaps) + "; in float32: "
+          + ", ".join(f"{g:.2e}" for g in r0["cache_reach"]))
+    print(f"tp serve path ({label}) {arch}: prefill {r0['prefill_ms']:.1f} "
+          f"ms (one process {r0['one_prefill_ms']:.1f}), decode median "
+          f"{r0['decode_ms']:.2f} ms a step (one process "
+          f"{r0['one_decode_ms']:.2f}); rank 0's profiled run "
+          f"{r0['wall'] * 1e3:.1f} ms wall, device busy "
+          f"{r0['busy'] * 1e3:.1f} ms, idle share "
+          f"{1 - r0['busy'] / r0['wall']:.3f}; logits within "
+          f"{max(g / b for g, b in zip(gaps, bound)):.3f} of their bound, "
+          f"caches within {max(g / b for g, b in zip(cgaps, cbound)):.3f};"
+          f" greedy tokens of the layout equal to the fed ones at "
+          f"{r0['tokens_equal']} of {steps} steps")
+    ok &= (len(gaps) == steps + 1 and all(
+        g <= b for g, b in zip(gaps, bound)) and all(
+        g <= b for g, b in zip(cgaps, cbound)))
+    return ok
+
+
+def tp_serve_path(timings):
+    """Mamba2-2.7B, Qwen3-1.7B and granite-moe served over each of
+    `tp_layouts`' rank sets (`spawn_ranks`, one process per rank) with
+    Mamba2's train steps and the smoke checks beside them, then
+    `ssd_scan` and `gating_topk` at a rank's shapes against their plain
+    versions; fails on any rank's error or failed check.  Returns the
+    launches per rank and the kernels' numbers at those shapes."""
+    import gc
+    import torch
+    from repro_torch.sharding.ranks import spawn_ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"ssd_scan": {}, "gating_topk": {}}
+    for backend, device, world in tp_layouts():
+        label = (f"{backend}, {world} ranks on "
+                 + (device if ":" in device else f"{world} cards")
+                 + f", mesh (1, {world // 2}, 2)")
+        t0 = time.perf_counter()
+        res = spawn_ranks(tp_serve_rank, world, backend, device)
+        secs = time.perf_counter() - t0
+        ok = True
+        for arch, spec in TP_SERVE.items():
+            ok &= tp_serve_report(label, arch, spec, [r[arch] for r in res])
+            for n in out:       # per rank: the prefill's, then each step's
+                per = [[launch.get(n, 0) for launch in r[arch]["launches"]]
+                       for r in res]
+                if any(map(any, per)):
+                    out[n][f"{arch} {backend}"] = per
+        for arch, spec in TP_SERVE_TRAIN.items():
+            ok &= tp_train_report(label, arch, spec,
+                                  [r["train"][arch] for r in res])
+        for name, worst in res[0]["smoke"]:
+            print(f"tp serve smoke check ({label}) {name}: card against "
+                  f"CPU ranks, float32, logits within {worst:.3f} of "
+                  f"their bound")
+            ok &= worst <= 1
+        print(f"tp serve path ({label}): {secs:.1f} s")
+        timings[f"tp serve {backend}"] = secs
+        if not ok:
+            raise AssertionError(f"tp serve path ({label}) failed its "
+                                 "checks")
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    ssd = ssd_zoo_shape(dev, S=4096, nh=40, hd=64, st=128, seed=34,
+                        label="a rank's 40 of Mamba2's 80 heads, the "
+                              "prefill's B*S 4096 as one row")
+    gating = gating_zoo_shapes(dev, ((4096, 32, 8), (4, 32, 8)), 134)
+    timings["tp serve kernel shapes"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return dict(launches=out, ssd=ssd, gating=gating)
 
 
 # ---------------------------------------------------------------------------
@@ -4849,31 +5368,34 @@ def flash_zoo_shape(dev, H, Hk, seed, S=SCORE_SEQ, hd=128):
                 library_ms=events["SDPA"])
 
 
-def ssd_zoo_shape(dev):
+def ssd_zoo_shape(dev, S=1024, nh=None, hd=None, st=None,
+                  label="Jamba's mixer", seed=16):
     """The bf16 tensor-core kernel at Jamba's mixer (S 1024, 256 heads x
-    64, state 16, chunk 128; st 16 the wgmma N tile) against its plain
-    version and the reference's function within the derived bounds (as
-    `check_ssd_kernel`), the full scan within its bound of interpret=True;
-    then times beside the bound."""
+    64, state 16, chunk 128; st 16 the wgmma N tile), or at the shape
+    given, against its plain version and the reference's function within
+    the derived bounds (as `check_ssd_kernel`), the full scan within its
+    bound of interpret=True; then times beside the bound."""
     import torch
     from repro_torch.kernels.ssd_scan import kernel as ker
     from repro_torch.kernels.ssd_scan import ops
     from repro_torch.kernels.ssd_scan.ref import (intra_chunk_majorants,
                                                   reference_intra_chunk,
                                                   split_intra_chunk)
-    Q, S = 128, 1024
-    nh, hd, st = ZOO_SSD["nh"], ZOO_SSD["hd"], ZOO_SSD["st"]
+    Q = 128
+    nh = ZOO_SSD["nh"] if nh is None else nh
+    hd = ZOO_SSD["hd"] if hd is None else hd
+    st = ZOO_SSD["st"] if st is None else st
     if not ker.uses_tensor_cores(Q, hd, st, torch.bfloat16):
-        raise AssertionError("ssd_scan at Jamba's shape: expected the "
+        raise AssertionError(f"ssd_scan at {label}: expected the "
                              "tensor-core kernel")
-    args = ssd_inputs(dev, S, seed=16, nh=nh, hd=hd, st=st)
+    args = ssd_inputs(dev, S, seed=seed, nh=nh, hd=hd, st=st)
     before = ker.ssd_intra_chunk.launches
     got = ker.ssd_intra_chunk(*args, Q)
     torch.cuda.synchronize()
     if ker.ssd_intra_chunk.launches != before + 1 or \
             not all(bool(torch.isfinite(g).all()) for g in got):
-        raise AssertionError("ssd_scan at Jamba's shape: not launched, or "
-                             "an output is not finite")
+        raise AssertionError(f"ssd_scan at {label}: not launched, or an "
+                             "output is not finite")
     co = ssd_coefficients(Q, st, S // Q)
     majorants = intra_chunk_majorants(*args, Q)
     split = ssd_shares(got, split_intra_chunk(*args, Q), majorants, co,
@@ -4888,7 +5410,7 @@ def ssd_zoo_shape(dev):
     full = float(torch.where(d_full > 0, d_full / (co["full"] * t_full),
                              0.0).max())
     print(f"kernel check: ssd_scan S={S}, {nh} heads x {hd}, state {st}, "
-          f"chunk {Q} (Jamba's mixer), bf16 inputs, tensor cores: vs its "
+          f"chunk {Q} ({label}), bf16 inputs, tensor cores: vs its "
           f"plain version (split_intra_chunk) y {split['y']:.3e} and h "
           f"{split['h']:.3e} of the derived bound (y max abs err "
           f"{split['err']:.3e}); vs the reference's function y "
@@ -4898,8 +5420,8 @@ def ssd_zoo_shape(dev):
     if not (max(split["y"], split["h"], ref["y"], ref["h"], full) <= 1
             and split["exact"] and ref["exact"]
             and y_k.shape == (1, S, nh, hd)):
-        raise AssertionError("ssd_scan at Jamba's shape: the kernel is "
-                             "outside its derived bounds")
+        raise AssertionError(f"ssd_scan at {label}: the kernel is outside "
+                             "its derived bounds")
     ms = kernel_device_ms(lambda: ker.ssd_intra_chunk(*args, Q), 50,
                           "ssd_intra_chunk")
     plain_ms = cuda_time_ms(lambda: split_intra_chunk(*args, Q), 3)
@@ -4919,14 +5441,15 @@ def ssd_zoo_shape(dev):
                 bound_ms=bound_s * 1e3, bound_by=by, library_ms=None)
 
 
-def gating_zoo_shapes(dev):
+def gating_zoo_shapes(dev, shapes=ZOO_GATING, seed0=100):
     """The kernel bitwise its plain version at moonshot's and Jamba's
-    router shapes, ordinary and non-finite rows; times at each."""
+    router shapes (or `shapes`, (N, E, k) each), ordinary and non-finite
+    rows; times at each."""
     from repro_torch.kernels.moe_gating import kernel as gk
     from repro_torch.kernels.moe_gating.ref import reference_gating
     out = {}
-    for seed, (N, E, k) in enumerate(ZOO_GATING):
-        err = check_gating_case(dev, N, E, k, 100 + seed)
+    for seed, (N, E, k) in enumerate(shapes):
+        err = check_gating_case(dev, N, E, k, seed0 + seed)
         check_gating_non_finite(dev, N, E, k)
         x = gating_logits(dev, N, E, N + E)
         ms = kernel_device_ms(lambda: gk.gating_topk(x, k), 200,
@@ -5684,6 +6207,7 @@ def main():
     tp_kernels = tp_kernel_checks(dev)
     timings["tp kernel shapes"] = time.perf_counter() - t0 - sum(
         v for k, v in timings.items() if k.startswith("tp train"))
+    tp_serve = tp_serve_path(timings)
     zoo = zoo_section(dev, timings)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in timings.items())
@@ -5710,7 +6234,9 @@ def main():
                       "{16,32,64,128,256} (the serving path): tensor cores; "
                       "float32 and other bf16 shapes: CUDA cores",
              **ssd_stats, zoo_launches=zoo["launches"]["ssd_scan"],
-             zoo_shape=zoo["ssd"]),
+             zoo_shape=zoo["ssd"],
+             tp_serve_launches=tp_serve["launches"]["ssd_scan"],
+             tp_serve_rank_shape=tp_serve["ssd"]),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:67",
@@ -5727,7 +6253,9 @@ def main():
              zoo_launches=zoo["launches"]["gating_topk"],
              zoo_shapes=zoo["gating"],
              tp_path_shape_max_abs_err=tp_kernels[
-                 "gating N 2056 E 32 k 8"])]}))
+                 "gating N 2056 E 32 k 8"],
+             tp_serve_launches=tp_serve["launches"]["gating_topk"],
+             tp_serve_rank_shapes=tp_serve["gating"])]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -138,34 +138,47 @@ def params_from_numpy(tree: Mapping, spec: Spec, device,
     return unflatten(out)
 
 
-def caches_from_numpy(tree, like):
+def caches_from_numpy(tree, like, shardings=None):
     """`repro`'s serving caches with numpy leaves (as `jax.tree.map(
     np.asarray, …)` gives them: a `KVCache` or `SSMCache`, the hybrid's
     dict of them by sub-layer, or the encoder-decoder's `DecCache`, whose
     first field is itself a `KVCache`) → the port's, shaped as the cache
     tree `like` (`Model.init_caches`): the same dict keys and cache types,
     each leaf of `like`'s shape and type (bfloat16 carried over by its
-    bits) on `like`'s device."""
+    bits) on `like`'s device.  With `shardings` (a tree of
+    `sharding.axes.NamedSharding` matching `like`,
+    `Model.cache_shardings`) each leaf is a DTensor of this rank's block,
+    and only the block goes to the device, as `params_from_numpy`
+    carries the weights."""
     if isinstance(like, Mapping):
         got = sorted(tree) if isinstance(tree, Mapping) else \
             type(tree).__name__
         if got != sorted(like):
             raise KeyError(f"cache sub-layers {got} are not the port's "
                            f"{sorted(like)}")
-        return {k: caches_from_numpy(tree[k], v) for k, v in like.items()}
+        return {k: caches_from_numpy(tree[k], v, None if shardings is None
+                                     else shardings[k])
+                for k, v in like.items()}
     if len(tree) != len(like):
         raise ValueError(f"{type(like).__name__} has {len(like)} fields, "
                          f"the tree {len(tree)}")
     out = []
-    for name, a, t in zip(like._fields, tree, like):
+    for i, (name, a, t) in enumerate(zip(like._fields, tree, like)):
+        s = None if shardings is None else shardings[i]
         if not isinstance(t, torch.Tensor):
-            out.append(caches_from_numpy(a, t))
+            out.append(caches_from_numpy(a, t, s))
             continue
         a = np.asarray(a)
         if a.shape != tuple(t.shape):
             raise ValueError(f"cache `{name}` has shape {a.shape}, the "
                              f"port's {tuple(t.shape)}")
-        out.append(_tensor(a).to(device=t.device, dtype=t.dtype))
+        device = t.to_local().device if hasattr(t, "to_local") else t.device
+        if s is None:
+            out.append(_tensor(a).to(device=device, dtype=t.dtype))
+            continue
+        local = _tensor(a[s.block(a.shape)])
+        out.append(s.distribute(local.to(device=device, dtype=t.dtype),
+                                a.shape))
     return type(like)(*out)
 
 

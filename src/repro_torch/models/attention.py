@@ -12,20 +12,38 @@ Every family runs through it (GQA groups of 1 to 8 query heads per K/V
 head); with `cfg.mrope_sections` and `positions3` the rotation is
 M-RoPE, else RoPE.
 
-Under a tensor-parallel axis (`sharding.tp`) the scoring and training
-attention computes this rank's range of query heads and the K/V heads
-they read (`_local_heads`), and `attention` returns its partial sum of
-the output projection; qk-norm and the rotation act per head.
+Under a tensor-parallel axis (`sharding.tp`) that the rules put the
+heads on, the scoring and training attention computes this rank's range
+of query heads and the K/V heads they read (`_local_heads`), and
+`attention` returns its partial sum of the output projection; qk-norm
+and the rotation act per head.  Where the rules leave the heads off the
+axis (`sequence_parallel_rules`) every rank computes them all.
+
+Serving under such an axis (`prefill_attention`, `decode_attention`,
+each given the cache's global length `max_seq`): the rank's q heads,
+and the K/V heads its cache block holds (`_serve_heads`): its block of
+them where the rules shard `kv_heads`, else all of them, every rank
+writing the same whole cache.  Where the rules put the cache's sequence
+(`seq_kv`) on the axis (`decode_32k`'s layout, `sequence_parallel_rules`)
+rank r holds positions [r·Sl, (r+1)·Sl), Sl = max_seq / M.  Prefill
+then attends over the whole prompt and writes only the rank's positions;
+decode gathers the one-token q over the axis, writes the new row on the
+rank that holds `pos`, and each rank attends every q head over its
+positions: the partial softmax merges by an all-reduce of the row
+maxima and then one of the rescaled sums and weighted values
+(`_merged_decode`), flash-decoding's combine.  The cache is never
+gathered.  The write's clamp (`_write`) is taken on the global length.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels.flash_attention import ops as fa
+from ..sharding import ranks
 from ..sharding import tp as tpl
 from .layers import apply_mrope, apply_rope, rms_norm
 from .params import ParamDef, Spec
@@ -60,7 +78,7 @@ def _local_heads(cfg: ArchConfig, p):
     serve the q heads of several ranks).  `p` and None without a
     tensor-parallel axis."""
     tp = tpl.context()
-    if tp is None:
+    if tp is None or not tp.splits("heads"):
         return p, None
     H, Hk = cfg.n_heads, cfg.n_kv_heads
     G = H // Hk
@@ -243,40 +261,165 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                    torch.zeros(shape, dtype=dtype, device=device))
 
 
-def _write(cache: KVCache, k, v, start: int) -> KVCache:
+def _write(cache: KVCache, k, v, start: int,
+           max_seq: Optional[int] = None, offset: int = 0) -> KVCache:
     """Write k, v [B,S,Hk,hd] at sequence index `start`, in place (the
     reference's `dynamic_update_slice` makes a new array; the port writes
     into the caller's tensors, which may be views of the stacked
     caches).  Like `dynamic_update_slice`, `start` is clamped so that the
-    update fits: a decode step at or past the cache's end overwrites its
-    last row."""
-    start = max(0, min(start, cache.k.shape[1] - k.shape[1]))
-    cache.k[:, start:start + k.shape[1]] = k.to(cache.k.dtype)
-    cache.v[:, start:start + v.shape[1]] = v.to(cache.v.dtype)
+    update fits the cache's `max_seq` positions (default: its length): a
+    decode step at or past the cache's end overwrites its last row.  A
+    cache block that holds positions [offset, offset + its length) of
+    them takes the rows that fall there."""
+    n = cache.k.shape[1]
+    max_seq = n if max_seq is None else max_seq
+    start = max(0, min(start, max_seq - k.shape[1]))
+    lo, hi = max(start, offset), min(start + k.shape[1], offset + n)
+    if lo < hi:
+        cache.k[:, lo - offset:hi - offset] = \
+            k[:, lo - start:hi - start].to(cache.k.dtype)
+        cache.v[:, lo - offset:hi - offset] = \
+            v[:, lo - start:hi - start].to(cache.v.dtype)
     return cache
 
 
+def _serve_heads(cfg: ArchConfig, p, cache: KVCache):
+    """Serving's heads on this rank: (p with its q and o heads and the
+    K/V weights of the heads its cache holds, (a, b) the K/V heads its q
+    heads read as a range of those, the K/V head of each q head within
+    that range where they do not group evenly, else None).  The cache
+    holds the rules' block of the K/V heads, or all of them where
+    `kv_heads` falls back to replicated (or is not on the axis); every
+    rank then computes them all.  `p` whole without a tensor-parallel
+    axis that splits the heads."""
+    H, Hk = cfg.n_heads, cfg.n_kv_heads
+    tp = tpl.context()
+    held = cache.k.shape[2]
+    if tp is None or not tp.splits("heads"):
+        return p, (0, held), None
+    G = H // Hk
+    lo, hi = tp.range(H)
+    k_lo, k_hi = lo // G, (hi - 1) // G + 1
+    c_lo = 0 if held == Hk else tp.range(Hk)[0]
+    if not c_lo <= k_lo < k_hi <= c_lo + held:
+        raise ValueError(f"this rank's q heads [{lo}, {hi}) read K/V heads "
+                         f"[{k_lo}, {k_hi}), its cache holds "
+                         f"[{c_lo}, {c_lo + held})")
+    out = dict(p, q=tp.local(p["q"], 1, H), o=tp.local(p["o"], 0, H))
+    for name in ("k", "v"):
+        w = p[name]
+        out[name] = w[:, c_lo:c_lo + held] if w.shape[1] == Hk else w
+    of_q = torch.arange(lo, hi) // G - k_lo
+    n_q, n_kv = hi - lo, k_hi - k_lo
+    even = n_q % n_kv == 0 and torch.equal(
+        of_q, torch.arange(n_kv).repeat_interleave(n_q // n_kv))
+    return out, (k_lo - c_lo, k_hi - c_lo), None if even else of_q
+
+
+def _kv_all(cfg: ArchConfig, k, v, cache: KVCache):
+    """k, v projected for the heads the K/V weights give, gathered over
+    the axis where the cache holds more of them (`kv_heads` split over the
+    axis in the weights while the cache's sequence takes the axis)."""
+    if k.shape[2] == cache.k.shape[2]:
+        return k, v
+    tp = tpl.context()
+    return (tp.gather_ranges(k, 2, cfg.n_kv_heads),
+            tp.gather_ranges(v, 2, cfg.n_kv_heads))
+
+
+def _read(k, v, span, of_q):
+    """The K/V heads this rank's q heads read: the range `span` of the
+    cache's heads, and one per q head where they do not group evenly."""
+    k, v = k[:, :, span[0]:span[1]], v[:, :, span[0]:span[1]]
+    if of_q is not None:
+        idx = of_q.to(k.device)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    return k, v
+
+
+def _seq_block(cache: KVCache, max_seq: Optional[int]):
+    """(the tensor-parallel context, the first position this rank's cache
+    holds) where the cache's sequence is split over the axis, else
+    (None, 0)."""
+    if max_seq is None or cache.k.shape[1] == max_seq:
+        return None, 0
+    tp = tpl.context()
+    if tp is None or cache.k.shape[1] * tp.n != max_seq:
+        raise ValueError(f"a cache of {cache.k.shape[1]} positions for a "
+                         f"length of {max_seq}")
+    return tp, tp.r * cache.k.shape[1]
+
+
 def prefill_attention(cfg: ArchConfig, p, x, positions, cache: KVCache,
-                      positions3=None):
-    """Causal attention that also writes the prompt K/V into the cache."""
+                      positions3=None, max_seq: Optional[int] = None):
+    """Causal attention that also writes the prompt K/V into the cache
+    (this rank's heads and positions of it under a tensor-parallel axis:
+    the module docstring).  Returns (y, cache): y the output projection,
+    this rank's partial sum where the rules split the heads."""
+    p, span, of_q = _serve_heads(cfg, p, cache)
     q, k, v = _project_qkv(cfg, p, x, None, positions, positions3)
-    cache = _write(cache, k, v, 0)
+    k, v = _kv_all(cfg, k, v, cache)
+    _, offset = _seq_block(cache, max_seq)
+    cache = _write(cache, k, v, 0, max_seq, offset)
+    k, v = _read(k, v, span, of_q)
     out = _dispatch_sdpa(cfg, q, k, v, causal=True)
     y = torch.einsum("bshk,hkd->bsd", out, p["o"].to(out.dtype))
     return y, cache
 
 
+def _merged_decode(cfg: ArchConfig, tp, q, k, v, pos: int, offset: int):
+    """One query row [B,1,H,hd] against this rank's cache positions
+    [offset, offset + Sl) of k, v [B,Sl,Hk,hd], masked to positions ≤
+    `pos`, merged over the axis: the row maxima all-reduced (max), then
+    each rank's sum of exp(s − max) and its weighted values (float32)
+    all-reduced (sum).  `_sdpa`'s math: the scores in float32, scaled,
+    soft-capped and masked, the output cast to q's type."""
+    B, _, H, hd = q.shape
+    Hk = k.shape[2]
+    G = H // Hk
+    qg = q.reshape(B, 1, Hk, G, hd)
+    dt = torch.promote_types(q.dtype, k.dtype)
+    s = torch.einsum("bqhgk,bshk->bhgqs", qg.to(dt), k.to(dt)).float()
+    s = s / _sqrt_hd(hd).to(s.device)
+    if cfg.attn_logits_soft_cap:
+        c = cfg.attn_logits_soft_cap
+        s = c * torch.tanh(s / c)
+    at = offset + torch.arange(k.shape[1], device=q.device)
+    s = torch.where(at <= pos, s, NEG_INF)
+    m = ranks.all_max_(s.amax(dim=-1, keepdim=True), tp.group)
+    e = torch.exp(s - m)                                  # [B,Hk,G,1,Sl]
+    acc = torch.einsum("bhgqs,bshk->bhgqk", e, v.float())
+    both = ranks.all_sum_(torch.cat([e.sum(-1, keepdim=True), acc], -1),
+                          tp.group)
+    out = both[..., 1:] / both[..., :1]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, 1, H, hd).to(q.dtype)
+
+
 def decode_attention(cfg: ArchConfig, p, x, pos: int, cache: KVCache,
-                     positions3=None):
+                     positions3=None, max_seq: Optional[int] = None):
     """One-token decode: x [B,1,d]; `pos` the current index (same for all
-    batch rows).  Returns (y [B,1,d], cache')."""
+    batch rows).  Returns (y [B,1,d], cache'); under a tensor-parallel
+    axis the module docstring's layout."""
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    p, span, of_q = _serve_heads(cfg, p, cache)
     q, k, v = _project_qkv(cfg, p, x, None, positions, positions3)
-    cache = _write(cache, k, v, pos)
-    Smax = cache.k.shape[1]
-    mask = (torch.arange(Smax, device=x.device)[None, None, :] <= pos)[:, None]
-    out = _sdpa(cfg, q, cache.k, cache.v, mask)
+    k, v = _kv_all(cfg, k, v, cache)
+    tp, offset = _seq_block(cache, max_seq)
+    cache = _write(cache, k, v, pos, max_seq, offset)
+    if tp is not None:          # the cache's sequence over the axis
+        split = tp.splits("heads")
+        if split:               # every q head, to attend this rank's slice
+            q = tp.gather_ranges(q, 2, cfg.n_heads)
+        out = _merged_decode(cfg, tp, q, cache.k, cache.v, pos, offset)
+        if split:
+            out = out[:, :, slice(*tp.range(cfg.n_heads))]
+    else:
+        Smax = cache.k.shape[1]
+        mask = (torch.arange(Smax, device=x.device)[None, None, :]
+                <= pos)[:, None]
+        k, v = _read(cache.k, cache.v, span, of_q)
+        out = _sdpa(cfg, q, k, v, mask)
     y = torch.einsum("bshk,hkd->bsd", out, p["o"].to(out.dtype))
     return y, cache
 

@@ -5,10 +5,12 @@ and the chunked cross-entropy.
 
 Under a tensor-parallel axis (`sharding.tp`) the MLP is column-parallel
 into this rank's MLP columns and row-parallel out, returning its partial
-sum; the embedding looks up this rank's vocabulary range and reduce-
-scatters to the residual's block; the cross-entropy computes this
-rank's vocabulary range of the logits and combines the ranks'
-logsumexp terms and the label's logit with all-reduces."""
+sum (whole on every rank where the rules leave `mlp` off the axis); the
+embedding looks up this rank's vocabulary range and reduce-scatters to
+the residual's block; the cross-entropy computes this rank's vocabulary
+range of the logits and combines the ranks' logsumexp terms and the
+label's logit with all-reduces; the full logits of serving (`unembed`)
+are this rank's vocabulary range, all-gathered."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -97,7 +99,7 @@ def mlp_apply(cfg: ArchConfig, p, x):
     """x [..., d] → [..., d]; under a tensor-parallel axis x is the full
     rows and the result this rank's partial sum over its MLP columns."""
     tp = tpl.context()
-    if tp is not None:
+    if tp is not None and tp.splits("mlp"):
         p = {k: tp.local(w, 0 if k == "wo" else 1, cfg.d_ff)
              for k, w in p.items()}
     if cfg.act == "swiglu":
@@ -139,13 +141,18 @@ def embed_tokens(p, tokens, vocab: Optional[int] = None):
 
 
 def unembed(cfg: ArchConfig, p, x, eps=1e-6):
-    """Final norm and head; logits in float32."""
-    if tpl.context() is not None:
-        raise NotImplementedError("full logits under tensor parallelism "
-                                  "(the loss takes chunked_ce)")
-    x = rms_norm(x, p["final_norm"], eps)
+    """Final norm and head; logits in float32.  Under a tensor-parallel
+    axis `x` is the residual's block: each rank computes its vocabulary
+    range of the logits from the full rows, and the ranges are
+    all-gathered (padded where they are uneven), the same bits on every
+    rank."""
+    tp = tpl.context()
+    x = rms_norm(tpl.gather(x), p["final_norm"], eps)
     w = p["tok"].T if cfg.tie_embeddings else p["head"]
-    return (x @ w.to(x.dtype)).float()
+    if tp is None:
+        return (x @ w.to(x.dtype)).float()
+    w = tp.local(w, 1, cfg.vocab)
+    return tp.gather_ranges((x @ w.to(x.dtype)).float(), -1, cfg.vocab)
 
 
 def chunked_ce(cfg: ArchConfig, p, hidden, labels, chunk: int = 512):

@@ -24,13 +24,19 @@ prepended to the token embeddings; no loss on it); its three position
 streams are the same stream, as the reference builds them
 (`_positions3`).  The audio family is `encdec`'s.
 
-Under a tensor-parallel axis (`sharding.tp`; `base_rules` with "model"
-larger than 1) the scoring and training forward holds the residual
-stream as this rank's block of `act_embed`: each block gathers it before
-its norm, and the mixer's and the FFN's partial sums are scattered back
-to the block.  Under `fsdp_rules` each layer's parameters, and the
+Under a tensor-parallel axis (`sharding.tp`; `base_rules`, `decode_32k`'s
+layout or `sequence_parallel_rules` with "model" larger than 1) every
+entry point holds the residual stream as this rank's block of
+`act_embed`: each block gathers it before its norm, and the mixer's and
+the FFN's outputs go back to the block (`tp.out`: a reduce-scatter of
+partial sums, or the block of a whole sum where the rules leave the
+mixer's axis off "model").  Prefill and decode take this rank's blocks
+of the caches (`Model.init_caches(..., shardings=)`) and the caches'
+global K/V length (`max_seq`), which tells a block of the sequence from
+a whole one; the logits are gathered whole on every rank
+(`layers.unembed`).  Under `fsdp_rules` each layer's parameters, and the
 embedding's at each use, are gathered over the data axes inside the
-remat'd layer (`tp.fsdp_gather`).  Prefill and decode run on one device.
+remat'd layer (`tp.fsdp_gather`).
 """
 from __future__ import annotations
 
@@ -108,7 +114,8 @@ def lm_spec(cfg: ArchConfig) -> Spec:
 
 def _apply_block(cfg: ArchConfig, mixer: str, ffn: str, p, x, *,
                  positions=None, positions3=None, cache=None,
-                 mode: str = "train", pos=None, interpret: bool = False):
+                 mode: str = "train", pos=None, max_seq=None,
+                 interpret: bool = False):
     """Pre-norm mixer block with its residual, then the FFN and its
     residual (no FFN in the SSM family).  Returns (x, cache, aux): the
     MoE layer's aux loss in training mode, else None."""
@@ -119,18 +126,17 @@ def _apply_block(cfg: ArchConfig, mixer: str, ffn: str, p, x, *,
             y = attn.attention(cfg, p["mixer"], h, positions, positions3,
                                interpret=interpret)
         elif mode == "prefill":
-            y, new_cache = attn.prefill_attention(cfg, p["mixer"], h,
-                                                  positions, cache,
-                                                  positions3)
+            y, new_cache = attn.prefill_attention(
+                cfg, p["mixer"], h, positions, cache, positions3, max_seq)
         else:
-            y, new_cache = attn.decode_attention(cfg, p["mixer"], h, pos,
-                                                 cache, positions3)
+            y, new_cache = attn.decode_attention(
+                cfg, p["mixer"], h, pos, cache, positions3, max_seq)
     elif mode == "decode":
         y, new_cache = ssm_lib.ssm_decode_step(cfg, p["mixer"], h, cache)
     else:
         y, new_cache = ssm_lib.ssm_apply(cfg, p["mixer"], h, cache,
                                          interpret=interpret)
-    x = x + tpl.scatter(y)
+    x = x + tpl.out(y, "heads" if mixer == "attn" else "ssm_inner")
     aux = None
     if ffn != "none":
         h = rms_norm(tpl.gather(x), p["norm2"], cfg.norm_eps)
@@ -140,7 +146,7 @@ def _apply_block(cfg: ArchConfig, mixer: str, ffn: str, p, x, *,
             y, aux = moe_lib.moe_apply(cfg, p["ffn"], h,
                                        need_aux=mode == "train",
                                        interpret=interpret)
-        x = x + tpl.scatter(y)
+        x = x + tpl.out(y, "mlp" if ffn == "mlp" else "expert")
     return x, new_cache, aux
 
 
@@ -188,17 +194,27 @@ def _embed(cfg: ArchConfig, params, tokens, extra_embeds):
     return x
 
 
+def _layer_spec(cfg: ArchConfig) -> Spec:
+    """One step of the stack's parameter spec: a layer, or the hybrid's
+    period of sub-layers."""
+    kinds = _layer_kinds(cfg)
+    if len(kinds) == 1:
+        return block_spec(cfg, *kinds[0])
+    return {f"sub{i}": block_spec(cfg, m, f)
+            for i, (m, f) in enumerate(kinds)}
+
+
 def _run_stack(cfg: ArchConfig, blocks_p, x, caches, mode: str, pos=None,
-               interpret: bool = False):
+               max_seq=None, interpret: bool = False):
     """Walk the stacked layer axis (the hybrid's periods, and each
     period's sub-layers) with caches; returns (x, caches).  The attention
     layers write K/V into the stacked caches in place (each layer's cache
     is a view of them); the SSM layers' new states are stacked anew.
-    One device: serving under a model mesh is not ported."""
-    if tpl.context() is not None:
-        raise NotImplementedError("prefill and decode under tensor "
-                                  "parallelism are not ported")
+    Under a tensor-parallel axis `x` and the caches are this rank's
+    blocks and `max_seq` is the caches' global K/V length."""
     period = _period(cfg)
+    if tpl.context() is None:
+        max_seq = None          # one device: each cache's own length
     if mode == "prefill":
         positions = _positions(x)
         positions3 = _positions3(cfg, positions)
@@ -207,16 +223,18 @@ def _run_stack(cfg: ArchConfig, blocks_p, x, caches, mode: str, pos=None,
         if cfg.mrope_sections is not None:
             positions3 = _positions3(cfg, torch.full(
                 (x.shape[0], 1), pos, dtype=torch.int64, device=x.device))
+    spec = _layer_spec(cfg)
     news = {key: [] for key, _, _ in period}
     for i in range(cfg.n_layers // len(period)):
-        p_i = _layer(blocks_p, i)
+        p_i = tpl.fsdp_gather(_layer(blocks_p, i), spec)
         for key, mixer, ffn in period:
             stacked = _sub(caches, key)
             cache_l = type(stacked)(*(t[i] for t in stacked))
             x, new, _ = _apply_block(cfg, mixer, ffn, _sub(p_i, key), x,
                                      positions=positions,
                                      positions3=positions3, cache=cache_l,
-                                     mode=mode, pos=pos, interpret=interpret)
+                                     mode=mode, pos=pos, max_seq=max_seq,
+                                     interpret=interpret)
             news[key].append(new)
     out = {}
     for key, mixer, _ in period:
@@ -303,9 +321,7 @@ def forward_hidden(cfg: ArchConfig, params, tokens, extra_embeds=None,
               "act_embed")
     positions = _positions(x)
     positions3 = _positions3(cfg, positions)
-    kinds = _layer_kinds(cfg)
-    layer_spec = block_spec(cfg, *kinds[0]) if len(kinds) == 1 else {
-        f"sub{i}": block_spec(cfg, m, f) for i, (m, f) in enumerate(kinds)}
+    layer_spec = _layer_spec(cfg)
 
     def layers(x, p_l):
         p_l = tpl.fsdp_gather(p_l, layer_spec)
@@ -362,25 +378,30 @@ def prefill(cfg: ArchConfig, params, tokens, max_seq: int,
             extra_embeds=None, caches=None, interpret: bool = False):
     """Prompt processing, after the prefix `extra_embeds` [B,Sv,d] when
     given; writes the caches (K/V, or the SSM state with a bfloat16 conv
-    state, unless `caches` are given).  Returns (logits_last [B,vocab],
-    caches, seq_len = Sv + S)."""
+    state, unless `caches` are given: under a tensor-parallel axis this
+    rank's blocks of caches of `max_seq` positions).  Returns
+    (logits_last [B,vocab], caches, seq_len = Sv + S)."""
     x = _embed(cfg, params, tokens, extra_embeds)
     B, S, _ = x.shape
     if caches is None:
         caches = init_caches(cfg, B, max_seq, device=x.device)
     x, caches = _run_stack(cfg, params["blocks"], x, caches, "prefill",
-                           interpret=interpret)
-    logits = unembed(cfg, params["embed"], x[:, -1:], cfg.norm_eps)
+                           max_seq=max_seq, interpret=interpret)
+    logits = unembed(cfg, tpl.fsdp_gather(params["embed"], embed_spec(cfg)),
+                     x[:, -1:], cfg.norm_eps)
     return logits[:, 0], caches, S
 
 
 def decode_step(cfg: ArchConfig, params, token, pos, caches,
-                interpret: bool = False):
+                interpret: bool = False, max_seq=None):
     """One decode step.  token [B,1] int; `pos` the shared current index
-    (not read by the SSM family).  Returns (logits [B,vocab],
-    new_caches)."""
-    x = embed_tokens(params["embed"], token)
+    (not read by the SSM family); `max_seq` the caches' global K/V length
+    under a tensor-parallel axis (default: this rank's).  Returns
+    (logits [B,vocab], new_caches)."""
+    x = _embed(cfg, params, token, None)
     x, caches = _run_stack(cfg, params["blocks"], x, caches, "decode",
-                           pos=int(pos), interpret=interpret)
-    logits = unembed(cfg, params["embed"], x, cfg.norm_eps)
+                           pos=int(pos), max_seq=max_seq,
+                           interpret=interpret)
+    logits = unembed(cfg, tpl.fsdp_gather(params["embed"], embed_spec(cfg)),
+                     x, cfg.norm_eps)
     return logits[:, 0], caches

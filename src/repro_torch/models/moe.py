@@ -177,7 +177,7 @@ def moe_apply(cfg: ArchConfig, p, x, group_size: int = 512,
 
     pos_oh = F.one_hot(pos, C).to(x.dtype) * keep[..., None].to(x.dtype)
     tp = tpl.context()
-    if tp is not None:          # this rank's experts
+    if tp is not None and tp.splits("expert"):     # this rank's experts
         lo, hi = tp.range(E)
         onehot = onehot[..., lo:hi]
         p = {k: w if k == "router" else tp.local(w, 0, E)

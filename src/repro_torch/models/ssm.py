@@ -11,6 +11,24 @@ is stored in the cache's type.
 
 Layout: d_inner = expand·d_model = n_heads·head_dim; a single B/C group
 shared across heads (the Mamba2 default).
+
+Under a tensor-parallel axis that the rules put `ssm_heads` and
+`ssm_inner` on (`base_rules`; `sharding.tp`), each rank runs the mixer
+on its range of the heads, [lo, hi) = `TP.range(n_heads)`, and the
+d_inner columns [lo·hd, hi·hd) of z, x, the conv and the gate
+(`_local_params`: the rules' block of a weight where it is that range,
+else the whole weight narrowed, or the blocks all-gathered and narrowed
+where `ssm_inner` divides over the axis and the heads do not); b and c,
+whose weights every rule replicates, whole.  The gate's RMS norm is
+over the whole d_inner: its mean square is the all-reduce of the ranks'
+float32 sums of squares (`_gate_norm`).  The output projection returns
+the rank's partial sum.  The caches: the state `h` is the rules' block
+of the heads, or whole, gathered over the axis, where they do not
+divide; the conv state, which every rule replicates, is whole on every
+rank, its x columns all-gathered (the last K−1 rows at prefill, the new
+row a decode step).  Where the rules leave the SSM axes off the
+tensor-parallel axis (`sequence_parallel_rules`) every rank runs the
+whole mixer.
 """
 from __future__ import annotations
 
@@ -21,6 +39,8 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels.ssd_scan import ops as ssd_ops
+from ..sharding import ranks
+from ..sharding import tp as tpl
 from .layers import rms_norm
 from .params import ParamDef, Spec
 
@@ -138,17 +158,102 @@ def _project(cfg: ArchConfig, p, x):
     return z, xs, b, c, dt
 
 
+def _plan(cfg: ArchConfig):
+    """(the tensor-parallel context, this rank's heads [lo, hi)) where the
+    rules split the SSM mixers over the axis, else (None, (0, n_heads))."""
+    tp = tpl.context()
+    if tp is None or not (tp.splits("ssm_heads") or tp.splits("ssm_inner")):
+        return None, (0, cfg.ssm_heads)
+    return tp, tp.range(cfg.ssm_heads)
+
+
+def _local_params(cfg: ArchConfig, p, tp, lo: int, hi: int):
+    """`p` with the head-indexed weights at heads [lo, hi) and the
+    d_inner-indexed ones at its columns; b's and c's whole."""
+    nh, hd = cfg.ssm_heads, cfg.ssm_headdim
+
+    def cols(w, dim, size, a, b):
+        if w.shape[dim] == size:            # replicated: narrow
+            return w.narrow(dim, a, b - a)
+        blk = size // tp.n                  # the rules' block
+        if (tp.r * blk, (tp.r + 1) * blk) == (a, b):
+            return w
+        whole = ranks.all_gather(w, dim, tp.group, tp.n)
+        return whole.narrow(dim, a, b - a)
+    di, c_lo, c_hi = nh * hd, lo * hd, hi * hd
+    out = dict(p)
+    for k, dim in (("in_z", 1), ("in_x", 1), ("conv_x", 1),
+                   ("gate_norm", 0), ("out", 0)):
+        out[k] = cols(p[k], dim, di, c_lo, c_hi)
+    for k, dim in (("in_dt", 1), ("a_log", 0), ("dt_bias", 0),
+                   ("d_skip", 0)):
+        out[k] = cols(p[k], dim, nh, lo, hi)
+    return out
+
+
+def _gate_norm(cfg: ArchConfig, tp, y, scale):
+    """`rms_norm` over the whole d_inner of rows whose columns lie on the
+    ranks: the float32 sums of squares all-reduced, with a gradient that
+    sums the ranks' parts (`ranks.copy_to`: each rank uses the sum only
+    for its own columns)."""
+    if tp is None:
+        return rms_norm(y, scale, cfg.norm_eps)
+    x32 = y.float()
+    sq = tp.all_reduce(torch.sum(x32 * x32, dim=-1, keepdim=True))
+    var = ranks.copy_to(sq, tp.group, tp.n) / cfg.d_inner
+    return (x32 * torch.rsqrt(var + cfg.norm_eps)).to(y.dtype) * scale
+
+
+def _conv_local(cfg: ArchConfig, conv, c_lo: int, c_hi: int):
+    """The conv state's columns of this rank: its x columns, then b, c."""
+    di = cfg.d_inner
+    if c_hi - c_lo == di:
+        return conv
+    return torch.cat([conv[..., c_lo:c_hi], conv[..., di:]], -1)
+
+
+def _conv_whole(cfg: ArchConfig, tp, rows, n_x: int):
+    """Conv-state rows of this rank's columns (its `n_x` x columns, then
+    b, c) → every column, the x columns all-gathered over the axis."""
+    if tp is None:
+        return rows
+    return torch.cat([tp.gather_ranges(rows[..., :n_x], -1, cfg.ssm_heads,
+                                       cfg.ssm_headdim), rows[..., n_x:]],
+                     -1)
+
+
+def _state_local(cfg: ArchConfig, h, lo: int, hi: int):
+    """The cache's SSM state at heads [lo, hi): the rules' block, or the
+    whole state narrowed."""
+    return h[:, lo:hi] if h.shape[1] == cfg.ssm_heads else h
+
+
+def _state_out(cfg: ArchConfig, tp, h, held: int):
+    """The new SSM state of this rank's heads, as the cache holds it: the
+    block, or every head gathered over the axis."""
+    if tp is None or h.shape[1] == held:
+        return h
+    return tp.gather_ranges(h, 1, cfg.ssm_heads)
+
+
 def ssm_apply(cfg: ArchConfig, p, x, cache: SSMCache | None = None,
               interpret: bool = False):
-    """Full-sequence Mamba2 mixer.  x: [B,S,d] → (y, new_cache or None).
-    `interpret=True` runs the kernel's plain version in its place."""
+    """Full-sequence Mamba2 mixer.  x: [B,S,d] → (y, new_cache or None);
+    under a tensor-parallel axis x is the full rows and y this rank's
+    partial sum over its heads.  `interpret=True` runs the kernel's plain
+    version in its place."""
     B, S, d = x.shape
-    di, st, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
+    st, hd = cfg.ssm_state, cfg.ssm_headdim
+    tp, (lo, hi) = _plan(cfg)
+    if tp is not None:
+        p = _local_params(cfg, p, tp, lo, hi)
+    nh, di = hi - lo, (hi - lo) * hd
     z, xs, b, c, dt = _project(cfg, p, x)
     conv_w = torch.cat([p["conv_x"], p["conv_b"], p["conv_c"]], -1)
     feats = torch.cat([xs, b, c], -1)
-    feats, conv_state = _causal_conv(feats, conv_w,
-                                     cache.conv if cache is not None else None)
+    feats, conv_state = _causal_conv(
+        feats, conv_w, _conv_local(cfg, cache.conv, lo * hd, hi * hd)
+        if cache is not None else None)
     xs, b, c = torch.split(feats, [di, st, st], dim=-1)
 
     a = -torch.exp(p["a_log"].float())                     # [nh]
@@ -164,13 +269,15 @@ def ssm_apply(cfg: ArchConfig, p, x, cache: SSMCache | None = None,
     y = y + xh.float() * p["d_skip"].float()[:, None]
     y = y.reshape(B, S, di).to(x.dtype)
 
-    y = rms_norm(y * _silu(z), p["gate_norm"], cfg.norm_eps)
+    y = _gate_norm(cfg, tp, y * _silu(z), p["gate_norm"])
     out = y @ p["out"]
     new_cache = None
     if cache is not None:
         # final ssm state for decode handoff
-        h = _final_state(xdt, log_a, b)
-        new_cache = SSMCache(conv_state.to(cache.conv.dtype), h)
+        h = _state_out(cfg, tp, _final_state(xdt, log_a, b),
+                       cache.h.shape[1])
+        conv = _conv_whole(cfg, tp, conv_state.to(cache.conv.dtype), di)
+        new_cache = SSMCache(conv, h)
     return out, new_cache
 
 
@@ -183,23 +290,33 @@ def _final_state(xdt, log_a, b):
 
 
 def ssm_decode_step(cfg: ArchConfig, p, x, cache: SSMCache):
-    """Single-token recurrent update.  x: [B,1,d]."""
+    """Single-token recurrent update.  x: [B,1,d]; under a tensor-parallel
+    axis as `ssm_apply`."""
     B = x.shape[0]
-    di, st, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
+    st, hd = cfg.ssm_state, cfg.ssm_headdim
+    tp, (lo, hi) = _plan(cfg)
+    if tp is not None:
+        p = _local_params(cfg, p, tp, lo, hi)
+    nh, di = hi - lo, (hi - lo) * hd
     z, xs, b, c, dt = _project(cfg, p, x)
     conv_w = torch.cat([p["conv_x"], p["conv_b"], p["conv_c"]], -1)
     feats = torch.cat([xs, b, c], -1)                      # [B,1,F]
-    feats, conv_state = _causal_conv(feats, conv_w, cache.conv)
+    feats, conv_state = _causal_conv(
+        feats, conv_w, _conv_local(cfg, cache.conv, lo * hd, hi * hd))
     xs, b, c = torch.split(feats, [di, st, st], dim=-1)
 
     a = -torch.exp(p["a_log"].float())
     da = torch.exp(dt[:, 0] * a)                           # [B,nh]
     xh = xs.reshape(B, nh, hd).float()
     xdt = xh * dt[:, 0][..., None]
-    h = cache.h * da[..., None, None] + \
+    h = _state_local(cfg, cache.h, lo, hi) * da[..., None, None] + \
         torch.einsum("bhd,bs->bhds", xdt, b[:, 0].float())
     y = torch.einsum("bhds,bs->bhd", h, c[:, 0].float())
     y = y + xh * p["d_skip"].float()[:, None]
     y = y.reshape(B, 1, di).to(x.dtype)
-    y = rms_norm(y * _silu(z), p["gate_norm"], cfg.norm_eps)
-    return y @ p["out"], SSMCache(conv_state.to(cache.conv.dtype), h)
+    y = _gate_norm(cfg, tp, y * _silu(z), p["gate_norm"])
+    if tp is not None:          # the state's x columns, the new row
+        conv_state = torch.cat([cache.conv[:, 1:], _conv_whole(
+            cfg, tp, conv_state[:, -1:].to(cache.conv.dtype), di)], 1)
+    return y @ p["out"], SSMCache(conv_state.to(cache.conv.dtype),
+                                  _state_out(cfg, tp, h, cache.h.shape[1]))

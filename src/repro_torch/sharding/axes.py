@@ -33,9 +33,11 @@ dimension d, `Replicate()` elsewhere) and as this rank's block of the
 full tensor.  What GSPMD inserts implicitly in `repro` the port does
 with explicit collectives on each axis's process group: the batch's in
 `train.step.make_train_step(mesh=, rules=)`, tensor and expert
-parallelism's and FSDP's gathers in the model code (`sharding.tp`).
-Sequence parallelism and the SSM mixers under a wide axis are not
-ported yet and raise (`check_ported`).
+parallelism's, the SSM mixers', the KV cache's sequence and FSDP's in
+the model code (`sharding.tp`).  The model is split over one mesh axis,
+the residual's (`model_axis`); model-parallel axes on a second wide
+axis and the sequence on a wide axis are not ported yet and raise
+(`check_ported`).
 """
 from __future__ import annotations
 
@@ -340,31 +342,71 @@ def batch_axes(rules: Rules) -> Tuple[str, ...]:
 
 # what the next slice ports (ROADMAP queue 1, item 11b)
 NEXT_SLICE = ("the next slice of the port (ROADMAP queue 1, item 11b): "
-              "sequence parallelism, pure_dp_rules(True)'s sequence over "
-              "'pod' and the SSM mixers under a wide 'model' axis")
-_UNPORTED = {"seq": "sequence parallelism", "seq_kv": "sequence parallelism",
-             "ssm_heads": "an SSM mixer's heads",
-             "ssm_inner": "an SSM mixer's inner width"}
+              "model-parallel axes on a second wide mesh axis "
+              "(sequence_parallel_rules with 'data' > 1), "
+              "pure_dp_rules(True)'s sequence over 'pod' and the "
+              "encoder-decoder under wide layouts")
+
+# logical axes that split the model: tensor and expert parallelism's,
+# the SSM mixers' and the KV cache's sequence
+MODEL_LOGICAL = ("act_embed", "heads", "kv_heads", "mlp", "expert",
+                 "vocab", "ssm_heads", "ssm_inner", "seq_kv")
+
+
+def _wide(rules: Rules, k: str, sizes) -> List[str]:
+    return [a for a in _names(rules.get(k)) if sizes.get(a, 1) > 1]
 
 
 def check_ported(rules: Rules, mesh, logical=None):
     """Raise `NotImplementedError`, naming the next slice, if `rules` put
-    one of the logical axes (of `logical`, default all) whose layouts are
-    not ported on a mesh axis: the sequence (`seq`, `seq_kv`:
-    `sequence_parallel_rules`, `pure_dp_rules(True)`) on any axis of the
-    mesh, the SSM mixers' `ssm_heads` / `ssm_inner` on one larger than 1.
-    The port never replicates what the rules shard."""
+    one of the logical axes (of `logical`, default all) where the port
+    does not go yet: the sequence (`seq`: `pure_dp_rules(True)`) on a
+    mesh axis larger than 1, or a model-parallel axis (`MODEL_LOGICAL`)
+    on a wide mesh axis other than the residual's (`act_embed`'s), or on
+    a batch axis (`sequence_parallel_rules` with "data" > 1 puts the
+    heads and the SSM mixers there).  The port never replicates what the
+    rules shard."""
     sizes = axis_sizes(mesh)
+    residual = _wide(rules, "act_embed", sizes)
+    batch = set(batch_axes(rules))
+    if len(residual) > 1 or batch & set(residual):
+        raise NotImplementedError(
+            f"the rules put the residual ('act_embed') on {residual} with "
+            f"the batch on {sorted(batch)}: a residual over several mesh "
+            f"axes or a batch axis comes in {NEXT_SLICE}")
     for k in (logical if logical is not None else rules):
-        if k not in _UNPORTED:
-            continue
-        least = 0 if k.startswith("seq") else 1
-        wide = [a for a in _names(rules.get(k)) if sizes.get(a, 0) > least]
-        if wide:
-            raise NotImplementedError(
-                f"the rules put {k!r} on mesh axis {wide[0]!r} of size "
-                f"{sizes[wide[0]]}: {_UNPORTED[k]} over a mesh axis comes "
-                f"in {NEXT_SLICE}")
+        if k == "seq":
+            wide = _wide(rules, k, sizes)
+            if wide:
+                raise NotImplementedError(
+                    f"the rules put 'seq' on mesh axis {wide[0]!r} of size "
+                    f"{sizes[wide[0]]}: the sequence over a mesh axis "
+                    f"comes in {NEXT_SLICE}")
+        elif k in MODEL_LOGICAL:
+            other = [a for a in _wide(rules, k, sizes)
+                     if a not in residual or a in batch]
+            if other:
+                raise NotImplementedError(
+                    f"the rules put {k!r} on mesh axis {other[0]!r} of "
+                    f"size {sizes[other[0]]} and the residual "
+                    f"('act_embed') on {residual or 'no wide axis'}: "
+                    f"model-parallel axes on a second wide mesh axis come "
+                    f"in {NEXT_SLICE}")
+
+
+def model_axis(rules: Rules, mesh) -> Optional[str]:
+    """The mesh axis the model is split over: the residual's
+    (`act_embed`'s) if it is larger than 1, else None; a layout the port
+    does not run raises (`check_ported`)."""
+    check_ported(rules, mesh)
+    wide = _wide(rules, "act_embed", axis_sizes(mesh))
+    return wide[0] if wide else None
+
+
+def on_axis(rules: Rules, axis: str) -> frozenset:
+    """The model-parallel logical axes that `rules` put on mesh axis
+    `axis`."""
+    return frozenset(k for k in MODEL_LOGICAL if axis in _names(rules.get(k)))
 
 
 def shard(x, *axes):

@@ -32,13 +32,14 @@ refuses two ranks on one card):
   `copy_to` (forward: the identity; backward: all-reduce), the entry of
   a column-parallel product whose input every rank holds whole.  The
   model code holds the residual as blocks, so its projections enter
-  through `all_gather` and no model code calls `copy_to` yet; it is the
-  other half of the pair, kept with its test for a layout whose input
-  is replicated.  A reduce-scatter is an all-reduce and a slice, so two
-  collectives are all the backends must take; it moves the whole sum
-  where a reduce-scatter would move a block.  Rank g of a group holds block g: the groups of
-  `axis_group` list their ranks in mesh order, major axis first, which
-  is the order of `axes.NamedSharding.block`.
+  through `all_gather`; `copy_to` wraps a sum that every rank holds
+  whole and uses only in part (the SSM gate norm's all-reduced mean
+  square, `models.ssm._gate_norm`).  A reduce-scatter is an all-reduce
+  and a slice, so two collectives are all the backends must take; it
+  moves the whole sum where a reduce-scatter would move a block.  Rank
+  g of a group holds block g: the groups of `axis_group` list their
+  ranks in mesh order, major axis first, which is the order of
+  `axes.NamedSharding.block`.
 
 `traffic` counts the bytes each collective of this process handed to
 the backend (an all-reduce its tensor, an all-gather its gathered

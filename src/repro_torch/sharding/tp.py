@@ -1,12 +1,16 @@
 """Tensor and expert parallelism over one mesh axis, and FSDP's gather
 at use: the collectives GSPMD inserts around the reference's projections
-under `base_rules` and `fsdp_rules`, made explicit for the model code.
+under `base_rules`, `fsdp_rules`, `decode_32k`'s layout and
+`sequence_parallel_rules` on a mesh whose "data" axis is 1, made
+explicit for the model code.
 
 Under the active rules and mesh (`axes.use_rules`), `context()` gives the
-tensor-parallel axis: the one mesh axis larger than 1 that the rules put
-the model-parallel logical axes on (`TP_LOGICAL`; "model" under
-`base_rules`), with this rank's group and index on it.  Without one it
-gives None, and the model code runs its one-device path unchanged.
+tensor-parallel axis: the mesh axis larger than 1 that the rules put
+the residual (`act_embed`) on ("model" under those rules,
+`axes.model_axis`), with this rank's group and index on it and the
+model-parallel logical axes the rules put there (`TP.splits`).  Without
+one it gives None, and the model code runs its one-device path
+unchanged.
 
 The layout, what the reference's comments describe
 (`repro/sharding/axes.py:138-141`, `repro/models/moe.py:120-122`):
@@ -14,24 +18,32 @@ The layout, what the reference's comments describe
 * The residual stream is held as each rank's block of its last
   dimension (`act_embed`).  Before each norm and projection it is
   all-gathered (`TP.gather`), so the RMS statistics are those of the
-  full row; after each projection out it is reduce-scattered back
-  (`TP.scatter`).
-* A projection into heads, MLP columns, experts or vocabulary entries
-  computes this rank's range of them (`TP.range`).  A weight the rules
-  shard there is that block already.  A weight they replicate, because
-  its dimension does not divide over the axis (`axes.divisible_spec`),
-  is narrowed to the range (`TP.local`); the ranges of such a dimension
-  may be uneven.
-* The projection out of a range sums the ranks' partial results.
+  full row.
+* A projection into heads, MLP columns, experts, SSM heads or
+  vocabulary entries that the rules split over the axis computes this
+  rank's range of them (`TP.range`).  A weight the rules shard there is
+  that block already.  A weight they replicate, because its dimension
+  does not divide over the axis (`axes.divisible_spec`), is narrowed to
+  the range (`TP.local`); the ranges of such a dimension may be uneven.
+  The projection out of a range sums the ranks' partial results, which
+  are reduce-scattered back to the residual's block.  A projection
+  whose logical axis the rules leave off the axis (the heads and SSM
+  mixers of `sequence_parallel_rules`, on "data") is computed whole on
+  every rank, and each rank keeps its block of it (`TP.out`).
+* The KV cache's sequence (`seq_kv`) on the axis: rank r holds cache
+  positions [r·Smax/M, (r+1)·Smax/M) (`models.attention`).
 
 Gradients: the loss is the same on every rank.  A parameter block the
 rules shard gets its whole gradient on its rank.  A parameter they
 replicate gets, on each rank, the part of its gradient that flows
-through that rank's range, and `train.step.make_train_step` sums those
-parts over the axis.  So every replicated value that feeds the loss on
-every rank must reach it through a per-rank part: the MoE load-balance
-loss sums its experts' terms by range (`models.moe.router_topk`), the
-cross-entropy its vocabulary's (`models.layers.chunked_ce`).
+through that rank's range or block, and `train.step.make_train_step`
+sums those parts over the axis.  So every replicated value that feeds
+the loss on every rank must reach it through a per-rank part: the MoE
+load-balance loss sums its experts' terms by range
+(`models.moe.router_topk`), the cross-entropy its vocabulary's
+(`models.layers.chunked_ce`).  A sum over ranks that each rank then uses
+only in part (the SSM gate norm's mean square) is `ranks.all_reduce`
+wrapped in `ranks.copy_to`, whose backward sums the parts.
 
 FSDP (`fsdp_gather`): a parameter that the rules shard over other axes
 than the tensor-parallel one (the data axes on `embed`) is all-gathered
@@ -46,30 +58,10 @@ from typing import Any, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 from . import axes as ax
 from . import ranks
-
-# logical axes that tensor and expert parallelism split
-TP_LOGICAL = ("act_embed", "heads", "kv_heads", "mlp", "expert", "vocab")
-
-
-def tp_axis(rules: ax.Rules, mesh) -> Optional[str]:
-    """The mesh axis larger than 1 that `rules` put the `TP_LOGICAL` axes
-    on, or None.  The port splits the model over one such axis, never a
-    batch axis."""
-    sizes = ax.axis_sizes(mesh)
-    wide = {a for k in TP_LOGICAL for a in ax._names(rules.get(k))
-            if sizes.get(a, 1) > 1}
-    if not wide:
-        return None
-    if len(wide) > 1 or wide & set(ax.batch_axes(rules)):
-        raise NotImplementedError(
-            f"the rules split the model over {sorted(wide)} with the batch "
-            f"over {ax.batch_axes(rules)}: the port splits it over one mesh "
-            "axis that is not a batch axis")
-    return wide.pop()
-
 
 @dataclass(frozen=True)
 class TP:
@@ -77,6 +69,11 @@ class TP:
     group: Any
     n: int          # the axis' size
     r: int          # this rank's index on it
+    on: frozenset   # the model-parallel logical axes the rules put here
+
+    def splits(self, logical: str) -> bool:
+        """Whether the rules split `logical` over this axis."""
+        return logical in self.on
 
     def range(self, size: int) -> Tuple[int, int]:
         """This rank's [lo, hi) of a dimension of `size`: the rules' block
@@ -111,17 +108,46 @@ class TP:
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         return ranks.all_reduce(x, self.group, self.n)
 
+    def out(self, y: torch.Tensor, logical: str) -> torch.Tensor:
+        """The residual's block of a projection out of `logical`: the
+        reduce-scatter of the ranks' partial sums where the rules split
+        `logical` here, else this rank's block of the whole sum."""
+        return self.scatter(y) if self.splits(logical) else self.block(y)
+
+    def gather_ranges(self, x: torch.Tensor, dim: int, units: int,
+                      width: int = 1) -> torch.Tensor:
+        """The whole of a dimension of `units` · `width` of which each
+        rank holds, in `x` along `dim`, its `range(units)` of units of
+        `width`: the ranges padded to one length, all-gathered (with a
+        gradient), the padding stripped.  Ranges of `units` that do not
+        divide over the axis are uneven (a vocabulary of 49155 over 2,
+        3 SSM heads over 2)."""
+        dim = dim % x.dim()
+        most = -(-units // self.n) * width
+        lo, hi = self.range(units)
+        if x.shape[dim] != (hi - lo) * width:
+            raise ValueError(f"dimension {dim} of {tuple(x.shape)} is not "
+                             f"this rank's {hi - lo} units of {width}")
+        pad = [0, 0] * (x.dim() - 1 - dim) + [0, most - x.shape[dim]]
+        full = ranks.all_gather(F.pad(x, pad), dim, self.group, self.n)
+        if units % self.n == 0:
+            return full
+        return torch.cat([full.narrow(dim, g * most, (
+            (g + 1) * units // self.n - g * units // self.n) * width)
+            for g in range(self.n)], dim)
+
 
 def context() -> Optional[TP]:
     """The tensor-parallel axis of the active rules and mesh, or None."""
     rules, mesh = ax.get_rules(), ax.get_mesh()
     if rules is None or mesh is None:
         return None
-    a = tp_axis(rules, mesh)
+    a = ax.model_axis(rules, mesh)
     if a is None:
         return None
     group = mesh.get_group(a)
-    return TP(group, ax.axis_sizes(mesh)[a], dist.get_rank(group))
+    return TP(group, ax.axis_sizes(mesh)[a], dist.get_rank(group),
+              ax.on_axis(rules, a))
 
 
 def gather(x: torch.Tensor) -> torch.Tensor:
@@ -136,6 +162,12 @@ def scatter(y: torch.Tensor) -> torch.Tensor:
     return y if tp is None else tp.scatter(y)
 
 
+def out(y: torch.Tensor, logical: str) -> torch.Tensor:
+    """`TP.out` under a tensor-parallel axis, else `y`."""
+    tp = context()
+    return y if tp is None else tp.out(y, logical)
+
+
 def fsdp_gather(tree, spec):
     """`tree`'s leaves (nested dicts matching `spec`'s `ParamDef`s, which
     give each leaf's global shape and logical axes), each all-gathered
@@ -147,7 +179,7 @@ def fsdp_gather(tree, spec):
             ax.axis_sizes(mesh).get(a, 1) > 1
             for a in ax._names(rules.get("embed"))):
         return tree
-    tp = tp_axis(rules, mesh)
+    tp = ax.model_axis(rules, mesh)
 
     def one(w, pd):
         s = ax.divisible_spec(ax.spec_for(pd.axes, rules), pd.shape, mesh)

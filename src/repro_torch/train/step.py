@@ -56,7 +56,6 @@ from ..models.api import Model, local_blocks
 from ..optim import adamw
 from ..sharding import axes as ax
 from ..sharding import ranks
-from ..sharding import tp as tpl
 
 
 def _value_and_grad(model: Model, params, batch):
@@ -128,7 +127,7 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
     model.check_layout(rules, mesh)
     rows = ax.NamedSharding(mesh, ax.P(ax.batch_axes(rules)))
     group, n = ranks.axis_group(mesh, ax.batch_axes(rules))
-    tp_axis = tpl.tp_axis(rules, mesh)
+    tp_axis = ax.model_axis(rules, mesh)
     shardings, _ = tree_flatten(model.param_shardings(mesh, rules))
     sizes = ax.axis_sizes(mesh)
 

@@ -898,6 +898,95 @@ def test_tp_scoring_with_flash_matches_the_plain_attention(tp_card_runs):
     assert tp_card_runs[0]["losses"] == tp_card_runs[1]["losses"]
 
 
+# ---- serving over a model mesh: two gloo ranks sharing the card ----
+
+def test_ssd_kernel_at_a_ranks_head_block(cuda):
+    """bf16 at a rank's block of Mamba2's SSM heads under `base_rules` on
+    two ranks: 40 of 80 heads x 64, state 128, chunk 128, the prefill's
+    [4, 1024], on the tensor cores, within the derived bounds of its
+    plain version and of the reference's function."""
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    args = ssd_inputs(40, cuda, 4, 1024, 40, 64, 128, torch.bfloat16)
+    assert ssd_kernel.uses_tensor_cores(128, 64, 128, torch.bfloat16)
+    before = ssd_kernel.ssd_intra_chunk.launches
+    got = ssd_kernel.ssd_intra_chunk(*args, 128)
+    torch.cuda.synchronize()
+    assert ssd_kernel.ssd_intra_chunk.launches == before + 1
+    majorants = ssd_ref.intra_chunk_majorants(*args, 128)
+    co = ssd_ref.split_coefficients(128, 128, 8)
+    ssd_within(got, ssd_ref.split_intra_chunk(*args, 128), majorants, co,
+               "split")
+    ssd_within(got, ssd_ref.reference_intra_chunk(*args, 128), majorants,
+               co, "ref")
+
+
+@pytest.fixture(scope="module")
+def tp_serve_card_runs():
+    """`torch_tp_serve_workers.card_rank` on two gloo ranks of card 0,
+    from qwen3's and granite-moe's smoke float32 inits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import torch_tp_serve_workers as SW
+    from repro_torch.checkpoint.checkpointer import tree_flatten
+    from repro_torch.models.api import build_model
+    from repro_torch.models.params import leaves, unflatten
+    from repro_torch.sharding.ranks import spawn_ranks
+    start = {}
+    for arch in ("qwen3-1.7b", "granite-moe-1b-a400m"):
+        model = build_model(SW.smoke(arch), "cpu")
+        flat = tree_flatten(model.init(torch.Generator().manual_seed(0),
+                                       torch.float32))[0]
+        start[arch] = unflatten((path, t.numpy()) for (path, _), t in
+                                zip(leaves(model.spec), flat))
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, 512, (SW.ROWS, SW.PROMPT))
+    steps = [rng.integers(0, 512, (SW.ROWS, 1)) for _ in range(SW.STEPS)]
+    return spawn_ranks(SW.card_rank, 2, "gloo", "cuda:0",
+                       (start, tokens, steps))
+
+
+def test_tp_serve_decode_32k_merge_matches_one_device(tp_serve_card_runs):
+    """qwen3's smoke decode under `decode_32k`'s layout on two gloo ranks
+    of the card (the KV sequence over "model", 8 positions a rank; the
+    third step writes rank 1's first row), float32: the partial softmax
+    merged over the ranks gives the one-device decode's logits within
+    rtol = atol = 1e-5 plus 1e-5 of the largest |logit|, each step from
+    the same caches; both ranks return the same bits."""
+    runs = [r["decode_32k"] for r in tp_serve_card_runs]
+    for res in runs:
+        for got, want in zip(res["ranks"], res["one"]):
+            atol = 1e-5 + 1e-5 * float(want.abs().max())
+            assert torch.allclose(got, want, rtol=1e-5, atol=atol)
+    assert all(torch.equal(a, b) for a, b in zip(runs[0]["ranks"],
+                                                 runs[1]["ranks"]))
+
+
+def test_tp_serve_gating_kernel_on_gathered_logits(tp_serve_card_runs):
+    """granite-moe's smoke prefill and decode under `base_rules` on two
+    gloo ranks of the card (2 of 4 experts a rank): each rank launches the
+    gating kernel once per layer per call, on the router logits gathered
+    over the ranks (all E columns); on the logits of an expert-parallel
+    decode step the kernel's gates and ids are bitwise its plain
+    version's."""
+    from repro_torch.kernels.moe_gating import kernel as gk
+    from repro_torch.kernels.moe_gating.ref import reference_gating
+    for res in tp_serve_card_runs:
+        g = res["gating"]
+        assert g["launches"] == [g["layers"]] * len(g["launches"])
+        for x, k in g["logits"]:
+            assert x.shape[-1] == g["experts"]
+        x, k = g["logits"][-1]          # the last decode step's, [B, E]
+        x = x.to("cuda")
+        before = gk.gating_topk.launches
+        gate, idx = gk.gating_topk(x, k)
+        want_gate, want_idx = reference_gating(x, k)
+        assert gk.gating_topk.launches == before + 1
+        assert torch.equal(idx, want_idx)
+        assert torch.equal(gate.view(torch.int32),
+                           want_gate.view(torch.int32))
+
+
 # ---- the model zoo: qwen3-14b, phi4-mini, nemotron, moonshot, Jamba ----
 
 ZOO_ARCHS = ("qwen3-14b", "phi4-mini-3.8b", "nemotron-4-15b",

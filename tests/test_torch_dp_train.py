@@ -266,12 +266,13 @@ def test_each_moment_block_is_the_opt_rules_embed_block(runs, world, arch):
 
 @pytest.mark.parametrize("world", [2, 4])
 def test_refused_layouts_raise_not_implemented(runs, world):
-    """Tensor parallelism over "model" and FSDP now run, and one step's
-    loss is the one-process step's on the same global batch; sequence
-    parallelism, `pure_dp_rules(True)` and an SSM model under a wide
-    "model" axis still raise, naming the next slice."""
+    """Tensor parallelism over "model", FSDP and an SSM model under a
+    wide "model" axis now run, and one step's loss is the one-process
+    step's on the same global batch; sequence parallelism over a wide
+    "data" axis and `pure_dp_rules(True)` still raise, naming the next
+    slice."""
     cases = runs[2][world][0]["refused"]
-    runs_now = {"model axis", "fsdp"}
+    runs_now = {"model axis", "fsdp", "ssm under model"}
     assert len(cases) == {2: 2, 4: 5}[world]
     for name, message, loss, one in cases:
         if name in runs_now:
@@ -279,7 +280,7 @@ def test_refused_layouts_raise_not_implemented(runs, world):
             assert loss == pytest.approx(one, rel=1e-5)
         else:
             assert message is not None and "item 11b" in message, name
-            assert "next slice" in message, name
+            assert ax.NEXT_SLICE in message, name
 
 
 # ---- compressed_psum ----

@@ -236,23 +236,35 @@ def test_tree_shardings_matched_drop_what_does_not_divide():
 
 def test_check_data_parallel_refuses_what_it_would_replicate():
     """`check_ported` (the data-parallel check until tensor parallelism
-    and FSDP were ported) passes those layouts and refuses the sequence
-    on a mesh axis and the SSM mixers on a wide one, naming the next
-    slice."""
+    and FSDP were ported) passes those layouts, the SSM mixers on the
+    residual's wide axis, `decode_32k`'s layout and
+    `sequence_parallel_rules` on a mesh whose "data" axis is 1; it
+    refuses the sequence on a wide mesh axis and model-parallel axes on
+    a second wide one, naming the next slice."""
     dp = StandIn((1, 4, 1))
     dense = ("batch", "seq", "seq_kv", "act_embed", "embed", "heads",
              "kv_heads", "mlp", "vocab")
+    decode_32k = dict(ax.base_rules(False), seq_kv="model", kv_heads=None)
     ax.check_ported(ax.pure_dp_rules(False), dp)
     ax.check_ported(ax.base_rules(True), StandIn((2, 2, 1)))
     ax.check_ported(ax.base_rules(False), StandIn((1, 2, 2)), dense)
     ax.check_ported(ax.fsdp_rules(ax.base_rules(False), False), dp)
+    ax.check_ported(ax.base_rules(False), StandIn((1, 2, 2)),
+                    ("batch", "ssm_heads"))
+    ax.check_ported(ax.base_rules(False), StandIn((1, 2, 2)))
+    ax.check_ported(decode_32k, StandIn((1, 2, 2)))
+    ax.check_ported(ax.sequence_parallel_rules(False), StandIn((1, 1, 2)))
+    assert ax.model_axis(ax.base_rules(False), StandIn((1, 2, 2))) == \
+        "model"
+    assert ax.model_axis(ax.pure_dp_rules(False), dp) is None
     for rules, mesh, logical in (
             (ax.sequence_parallel_rules(False), dp, None),
-            (ax.pure_dp_rules(True), StandIn((2, 2, 1)), None),
-            (ax.base_rules(False), StandIn((1, 2, 2)),
-             ("batch", "ssm_heads"))):
-        with pytest.raises(NotImplementedError, match="item 11b"):
+            (ax.sequence_parallel_rules(False), StandIn((1, 2, 2)),
+             ("batch", "ssm_heads")),
+            (ax.pure_dp_rules(True), StandIn((2, 2, 1)), None)):
+        with pytest.raises(NotImplementedError, match="item 11b") as exc:
             ax.check_ported(rules, mesh, logical)
+        assert ax.NEXT_SLICE in str(exc.value)
 
 
 def test_shard_is_the_identity_or_refuses():
