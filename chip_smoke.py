@@ -54,17 +54,18 @@ read just after:
   resumed, bitwise `mc_sweep`; `placement_score` runs once per placement
   step of every chunk, retry and bisection range;
 * the sharded engines: the kernel at giant_grid's 512 x 720 chunk;
-  `benchmarks/run.py`'s giant_grid at full size, 10^4 configurations in
-  chunks of 512 with streaming quantiles through `sharded_sweep` over
-  every visible card (launches equal to the summed steps, the first
-  1024 rows bitwise a one-shot `sweep`, the first 16 configurations'
-  p50/p90 within one bucket of an exact `sweep`, peak allocated memory
-  within 10% of a 512-configuration run's, the exact/streaming peak at
-  the 128-hall probe printed); then `sharded_sweep` over two slabs of
-  card 0 (every card too, when there are several) on the fleet_study
-  grid at scale 0.01, at mesh shapes (2, 1) and (1, 2) and in chunks of
-  5, and `sharded_mc_sweep` on Fig. 5's grid flat and on a (1, 2) mesh
-  with a trial remainder, each bitwise `sweep` / `mc_sweep`;
+  `benchmarks/run.py`'s giant_grid at half its size, 5 x 10^3
+  configurations in chunks of 512 with streaming quantiles through
+  `sharded_sweep` over every visible card (launches equal to the
+  summed steps, the first 1024 rows bitwise a one-shot `sweep`, the
+  first 16 configurations' p50/p90 within one bucket of an exact
+  `sweep`, peak allocated memory within 10% of a 512-configuration
+  run's, the exact/streaming peak at the 128-hall probe printed); then
+  `sharded_sweep` over two slabs of card 0 (every card too, when there
+  are several) on the fleet_study grid at scale 0.01, at mesh shapes
+  (2, 1) and (1, 2) and in chunks of 5, and `sharded_mc_sweep` on Fig.
+  5's grid flat and on a (1, 2) mesh with a trial remainder, each
+  bitwise `sweep` / `mc_sweep`;
 * Mamba2-2.7B serving: `smoke_config()` served on the CPU and on the card
   (float32), then the full-width model (d_model 2560, 32 of its 64
   layers, bf16 weights drawn from a generator seeded with 0) behind
@@ -118,7 +119,7 @@ read just after:
 * tensor and expert parallelism over "model" (`tp_train_path`, the same
   rank sets on a (1, W/2, 2) mesh, `base_rules(False)` with ZeRO-1
   moments, each rank holding its blocks): Qwen3-1.7B at full width and
-  7 layers, bf16, 2 steps of the same global batch, and granite-moe at
+  4 layers, bf16, 2 steps of the same global batch, and granite-moe at
   full width and 4 layers, float64, 2 steps; first a scoring call with flash on each
   rank's heads (flash once per layer per rank, gating_topk once per MoE
   layer), then the steps; ms per step, rank 0's idle share, peak per
@@ -129,9 +130,9 @@ read just after:
   K/V-head fallback, card ranks against CPU ranks; and flash alone at a
   rank's shape (H 8, Hk 4, B 4, S 4096) beside SDPA;
 * serving over a model mesh (`tp_serve_path`, the same rank sets and
-  mesh): Mamba2-2.7B at full width and 32 layers under `base_rules`
+  mesh): Mamba2-2.7B at full width and 16 layers under `base_rules`
   (ssd_scan once per layer per prefill on each rank's 40 of 80 heads),
-  Qwen3-1.7B at 14 layers under `decode_32k`'s layout (the KV cache's
+  Qwen3-1.7B at 7 layers under `decode_32k`'s layout (the KV cache's
   positions split over "model", decode's partial softmaxes merged) and
   granite-moe at 4 layers under `base_rules` (gating_topk once per layer
   per prefill and step on the gathered router logits), bf16, each a
@@ -142,10 +143,32 @@ read just after:
   the one-process run within 4x its own distance from float32
   arithmetic, the logits and replicated caches bitwise across ranks;
   Mamba2's mixer trained over the ranks (8 layers, float32, its
-  gradients per leaf against one process's); at smoke size, Jamba,
-  `sequence_parallel_rules` and the uneven-heads Mamba2, card ranks
-  against CPU ranks; ssd_scan and gating_topk at a rank's shapes
-  against their plain versions;
+  gradients per leaf against one process's); at smoke size, Jamba and
+  the uneven-heads Mamba2, card ranks against CPU ranks; ssd_scan and
+  gating_topk at a rank's shapes against their plain versions;
+* the second wide model axis (`sp_serve_path`, four gloo ranks on card
+  0, and one NCCL rank per card where four or more are visible, on a
+  (1, W/2, 2) mesh under `sequence_parallel_rules(False)`, long_500k's
+  layout: heads and SSM mixers over "data", the residual, MLP, experts,
+  vocabulary and KV positions over "model", batch 1): Mamba2-2.7B at
+  full width and 32 layers (a 1 x 1024 prompt, 32 decode steps;
+  ssd_scan once per layer per prefill on each rank's 40 of 80 heads),
+  bf16, and Jamba's period at full width with d_ff 1024, float32 (a
+  1 x 1024 prefill into a cache of 524288 positions, then 16 decode
+  steps from position 262136 on a drawn cache, crossing into "model"
+  rank 1's slice; ssd_scan once per Mamba layer per prefill,
+  gating_topk once per MoE layer per prefill and step; its routers take
+  the one-process run's expert ids, each rank's own ids gated to agree
+  at 99% of the rows), against the one-process run fed the same tokens
+  and caches, gated as `tp_serve_path` (a float32 run's own distance
+  from float32 arithmetic is 0: its bound is the floor, 1e-3 of the
+  largest logit);
+  at smoke size, card ranks against CPU ranks, Jamba on (1, 1, W) and
+  (1, W/2, 2), Jamba under `fsdp_rules` over the rules, qwen3 with 3
+  K/V heads, the uneven-heads Mamba2, and qwen3's scoring loss with
+  flash on a "data" rank's heads; ssd_scan at a "data" rank's Mamba2
+  shape (bf16) and Jamba's (float32, as its run) and gating_topk at E 16
+  top-2 against their plain versions;
 * the model zoo, each configuration at its published widths with bf16
   weights drawn from a generator seeded with 0: the smoke goldens of
   qwen3-14b, phi4-mini-3.8b, nemotron-4-15b, moonshot-v1-16b-a3b and
@@ -1894,13 +1917,14 @@ def resilient_mc_path(dev):
 
 # ------------------------------------------------------- sharded engines
 
-# benchmarks/run.py's giant_grid (:723-829): configurations, chunk size,
-# and the hall cap of its temp-memory probe (:799-803)
-GIANT_GRID = (10_000, 512)
+# benchmarks/run.py's giant_grid (:723-829): configurations (half its
+# 10^4 since the second wide model axis took the script's time), chunk
+# size, and the hall cap of its temp-memory probe (:799-803)
+GIANT_GRID = (5_000, 512)
 GIANT_PROBE_HALLS = 128
 GIANT_BITWISE_ROWS = 1024   # every (design, trace) pair, the same shapes
 GIANT_EXACT_ROWS = 16       # giant_grid.equivalence's sub-grid
-GIANT_MEMORY_SLACK = 0.10   # peak allocated, 10^4 against 512
+GIANT_MEMORY_SLACK = 0.10   # peak allocated, 5 x 10^3 against 512
 SPLIT_SCALE = 0.01          # the fleet_study grid at giant_grid's scale
 
 
@@ -1957,9 +1981,9 @@ class PrepareTimer:
 
 
 def giant_grid_path(dev):
-    """giant_grid (benchmarks/run.py:723-829) at its full size through
-    `sharded_sweep` (every visible card): 10^4 configurations in chunks
-    of 512, streaming quantiles; launches equal the summed steps; the
+    """giant_grid (benchmarks/run.py:723-829) at `GIANT_GRID`'s size
+    through `sharded_sweep` (every visible card): 5 x 10^3 configurations
+    in chunks of 512, streaming quantiles; launches equal the summed steps; the
     first 1024 rows bitwise a one-shot `sweep` of them; the first 16
     configurations' streaming p50/p90 within one bucket of an exact
     `sweep`; peak allocated memory within 10% of a 512-configuration
@@ -2167,15 +2191,17 @@ def ssd_coefficients(Q, st, nC=1):
                               majorant=SSD_MAJORANT)
 
 
-def ssd_bound(S, Q=128, nh=80, hd=64, st=128):
+def ssd_bound(S, Q=128, nh=80, hd=64, st=128, in_bytes=2):
     """(bytes, flop) one intra-chunk launch must move and do: each input
-    read once, each output (y, h, a and the prefix sums) written once; y
-    over the causal triangle, C·B once per chunk, the decay (sub, exp,
-    mul) per head, the chunk state."""
+    read once (xdt, B and C `in_bytes` an element), each output (y, h, a
+    and the prefix sums) written once; y over the causal triangle, C·B
+    once per chunk, the decay (sub, exp, mul) per head, the chunk
+    state."""
     nC = -(-S // Q)
     Sp = nC * Q
     tri = Q * (Q + 1) // 2
-    n_bytes = (Sp * nh * hd * 2 + Sp * nh * 4 + 2 * Sp * st * 2     # in
+    n_bytes = (Sp * nh * hd * in_bytes + Sp * nh * 4                # in
+               + 2 * Sp * st * in_bytes
                + Sp * nh * hd * 4 + nC * nh * hd * st * 4 + nC * nh * 4
                + Sp * nh * 4)
     n_flop = nC * (nh * tri * hd * 2 + tri * st * 2 + nh * tri * 3
@@ -3846,12 +3872,12 @@ def training_section(dev, timings):
 # collectives, the pipeline and resharding at smoke size on the same ranks
 # ---------------------------------------------------------------------------
 
-# Qwen3-1.7B at full width and 7 of its 28 layers (28 layers and 5 steps
+# Qwen3-1.7B at full width and 4 of its 28 layers (28 layers and 5 steps
 # until the tensor-parallel path came, 14 and 3 until serving over ranks
-# came), the global batch of 8 x 256 split over the ranks, 2 steps under
-# pure_dp_rules(False), whose opt_rules shard the moments over "data"
-# (ZeRO-1)
-DP_MAIN = dict(batch=8, seq=256, lr=3e-3, steps=2, layers=7)
+# came, 7 until the second wide model axis came), the global batch of
+# 8 x 256 split over the ranks, 2 steps under pure_dp_rules(False), whose
+# opt_rules shard the moments over "data" (ZeRO-1)
+DP_MAIN = dict(batch=8, seq=256, lr=3e-3, steps=2, layers=4)
 DP_NAMES = ("pod", "data", "model")
 # The first step's loss against the one-process step on the same
 # (concatenated) global batch.  Both run the same bf16 model on the same
@@ -4150,8 +4176,9 @@ def dp_train_path(timings):
 
 # Each arch at full width under base_rules(False) on (1, W/2, 2) with
 # opt_rules' ZeRO-1 moments, remat "full", the global batch 8 x 256:
-# Qwen3-1.7B at 7 of its 28 layers, 2 steps (14 and 3 until serving over
-# ranks came), bf16; granite-moe at 4 of 24, 2 steps (E 32 over 2 ranks, its router's
+# Qwen3-1.7B at 4 of its 28 layers, 2 steps (14 and 3 until serving over
+# ranks came, 7 until the second wide model axis came), bf16;
+# granite-moe at 4 of 24, 2 steps (E 32 over 2 ranks, its router's
 # gathered logits, vocab 49155 replicated: it does not divide), float64.
 # At this random init on the Zipf batch granite's gradient follows its
 # near-tied top-k routes, so any rounding moves it: on an H100 80GB HBM3
@@ -4163,7 +4190,7 @@ def dp_train_path(timings):
 # in float64, where its gradients are gated per leaf (TP_LEAF_RTOL).
 # Its TP scoring call, whose flash takes bf16 and float32, runs on
 # float32 weights from the same seed.
-TP_MAIN = {"qwen3-1.7b": dict(layers=7, steps=2, dtype="bfloat16"),
+TP_MAIN = {"qwen3-1.7b": dict(layers=4, steps=2, dtype="bfloat16"),
            "granite-moe-1b-a400m": dict(layers=4, steps=2, dtype="float64")}
 TP_BATCH = (8, 256)
 # warmup 1: step 1 updates at the full lr, above a bf16 ulp for most
@@ -4695,17 +4722,18 @@ def tp_train_path(timings):
 # Each arch at full width on random bf16 weights (seed 0), the kernels'
 # ops on, over `tp_layouts`' rank sets on a (1, W/2, 2) mesh: its depth,
 # its layout, the prompt's rows x tokens, the caches' length and the
-# decode steps.  Mamba2 at the serving paths' 32 of 64 layers under
-# `base_rules` (40 of its 80 SSM heads a rank); Qwen3-1.7B at 14 of 28
-# layers under `decode_32k`'s layout (the reference dry-run's: the KV
+# decode steps.  Mamba2 at 16 of 64 layers under `base_rules` (40 of its
+# 80 SSM heads a rank); Qwen3-1.7B at 7 of 28 layers under `decode_32k`'s
+# layout (the reference dry-run's: the KV
 # sequence over "model", K/V heads whole), 2048 positions, 1024 a rank, a
 # prompt of 1016, so that steps 9-16 write into rank 1's slice;
 # granite-moe at 4 of 24 layers under `base_rules` (E 32 over the ranks,
-# vocab 49155 replicated).
+# vocab 49155 replicated).  Mamba2 at 32 and Qwen3 at 14 layers until
+# `sp_serve_path` needed the script's time.
 TP_SERVE = {
-    "mamba2-2.7b": dict(layers=32, layout="base", rows=4, prompt=1024,
+    "mamba2-2.7b": dict(layers=16, layout="base", rows=4, prompt=1024,
                         max_seq=1056, steps=32),
-    "qwen3-1.7b": dict(layers=14, layout="decode_32k", rows=4,
+    "qwen3-1.7b": dict(layers=7, layout="decode_32k", rows=4,
                        prompt=1016, max_seq=2048, steps=16),
     "granite-moe-1b-a400m": dict(layers=4, layout="base", rows=4,
                                  prompt=1024, max_seq=1040, steps=16),
@@ -4738,6 +4766,13 @@ TP_SERVE_TRAIN = {"mamba2-2.7b": dict(layers=8, steps=2, dtype="float32")}
 # by O(1) of their largest.
 TP_SERVE_FACTOR = 4.0
 TP_SERVE_FLOOR = 1e-3
+# With `replay` the twin's and the layout's routers take the one-process
+# run's expert ids (`RouteLog`), since a near-tied route that one
+# rounding flips moves a token's residual by O(1).  A rank's own top-k
+# must still agree with them: its kernel's ids may differ at no more
+# than this share of the token rows (float32 roundings flip only
+# near-exact ties; a wrong router input moves most rows).
+ROUTE_FLIP_SHARE = 0.01
 # Smoke size, card ranks against CPU ranks of the same layout, float32,
 # each decode step from the CPU ranks' caches: `test_torch_tp_serve.py`'s
 # tolerances, |card - cpu| <= 1e-5 |cpu| + 1e-5 + 1e-5 max |cpu|, the
@@ -4781,24 +4816,96 @@ def cache_copy(tree, dev):
     return tree.to(dev, copy=True)
 
 
-def float32_tree(tree):
-    """A nested dict of tensors, each cast to float32 (the same values)."""
+def cast_tree(tree, dtype):
+    """A nested dict of tensors, each cast to `dtype` (the same values)."""
+    return {k: cast_tree(v, dtype) if isinstance(v, dict) else v.to(dtype)
+            for k, v in tree.items()}
+
+
+def stored_gap(got, want, dtype):
+    """`rel_gap` of a cache leaf of a run computed in `dtype`, less one
+    ulp of each element where the leaf is stored narrower (a float32
+    run's bf16 K/V and conv states): both runs round values that agree
+    far below that ulp, so an element may part by one rounding."""
     import torch
-    return {k: float32_tree(v) if isinstance(v, dict) else
-            v.to(torch.float32) for k, v in tree.items()}
+    if got.element_size() >= dtype.itemsize:
+        return rel_gap(got, want)
+    g, w = got.float(), want.float()
+    _, e = torch.frexp(torch.maximum(g.abs(), w.abs()))
+    ulp = torch.ldexp(torch.full_like(g, torch.finfo(got.dtype).eps), e - 1)
+    return float(((g - w).abs() - ulp).clamp_min(0).max()
+                 / w.abs().max().clamp_min(1e-30))
+
+
+def kv_leaves(tree):
+    """The K/V cache leaves of a cache tree, in `cache_leaves`' order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in kv_leaves(tree[k])]
+    return list(tree) if type(tree).__name__ == "KVCache" else []
+
+
+def kv_rows(leaf, lo, hi):
+    """Positions [lo, hi) of a K/V cache leaf [L, B, S, Hk, hd], full: of
+    a DTensor whose sequence the rules split, each rank's part of them
+    (zeros elsewhere) summed over the sequence's ranks in float32 (each
+    position is one rank's: exact), then gathered over the heads' (every
+    rank calls it)."""
+    import torch
+    from repro_torch.sharding import axes as ax
+    from repro_torch.sharding import ranks
+    sharding = ranks.sharding_of(leaf)
+    if sharding is None:
+        return leaf[:, :, lo:hi].clone()
+    x = leaf.to_local()
+    off = sharding.block(leaf.shape)[2].start or 0
+    a, b = max(lo, off), min(hi, off + x.shape[2])
+    part = torch.zeros(x.shape[:2] + (hi - lo,) + x.shape[3:],
+                       dtype=torch.float32, device=x.device)
+    if a < b:
+        part[:, :, a - lo:b - lo] = x[:, :, a - off:b - off]
+    spec = list(sharding.spec) + [None] * (leaf.dim() - len(sharding.spec))
+    group, n = ranks.axis_group(sharding.mesh, ax._names(spec[2]))
+    if n > 1:
+        ranks.all_sum_(part, group)
+    spec[2] = None
+    return ranks.gather_full(part.to(x.dtype), ax.NamedSharding(
+        sharding.mesh, ax.P(*spec)), tuple(leaf.shape[:2]) + (hi - lo,)
+        + tuple(leaf.shape[3:]))
+
+
+def compared_leaves(tree, rows=None):
+    """A cache tree's leaves in `cache_leaves`' order, each a full copy
+    (gathered from the ranks' blocks where it is a DTensor: every rank
+    calls it), the K/V caches only at positions [rows) when `rows` is
+    given (`kv_rows`)."""
+    from repro_torch.sharding import ranks
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in compared_leaves(tree[k], rows)]
+    if rows is not None and type(tree).__name__ == "KVCache":
+        return [kv_rows(x, *rows) for x in tree]
+    return [ranks.gather_dtensor(x).clone() for x in tree]
 
 
 def serve_run(model, params, tokens, max_seq, start, steps, feed=None,
-              fed=None):
+              fed=None, caches=None, keep=None):
     """`Model.prefill` of `tokens`, then `steps` decode steps from
     position `start`, each synchronised: greedy (its tokens written into
-    `fed`, [steps, rows, 1] on the CPU) or of `feed`'s tokens.  Returns
-    (logits per point, caches, prefill s, decode s per step)."""
+    `fed`, [steps, rows, 1] on the CPU) or of `feed`'s tokens.  With
+    `caches` the steps go on from them, not from the prefill's, of which
+    `keep` returns what is compared.  Returns (logits per point, caches,
+    what `keep` returned, prefill s, decode s per step)."""
     import torch
     t0 = time.perf_counter()
-    logits, caches = model.prefill(params, {"tokens": tokens}, max_seq)
+    logits, new = model.prefill(params, {"tokens": tokens}, max_seq)
     torch.cuda.synchronize()
     prefill_s, step_s, points = time.perf_counter() - t0, [], [logits]
+    kept = []
+    if caches is None:
+        caches = new
+    else:
+        kept = keep(new)
+    del new
     for i in range(steps):
         tok = feed[i] if feed is not None else logits.argmax(-1, True)
         if fed is not None:
@@ -4808,18 +4915,62 @@ def serve_run(model, params, tokens, max_seq, start, steps, feed=None,
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         points.append(logits)
-    return points, caches, prefill_s, step_s
+    return points, caches, kept, prefill_s, step_s
+
+
+def rank_rows(mesh, rules, rows):
+    """(rows per rank, this rank's first row) of a global batch of `rows`
+    split over the rules' batch axes (every row on every rank where they
+    put the batch on no wide axis)."""
+    from repro_torch.sharding import axes as ax
+    sizes, coord = ax.axis_sizes(mesh), mesh.get_coordinate()
+    names = list(mesh.mesh_dim_names)
+    k, n = 0, 1
+    for a in ax.batch_axes(rules):
+        k, n = k * sizes[a] + coord[names.index(a)], n * sizes[a]
+    return rows // n, k * (rows // n)
+
+
+def ranks_agree(tensors, mesh, rules, spec=()):
+    """Whether every rank of the group over which these blocks are
+    replicated (the wide axes that neither `spec` nor the rules' batch
+    axes name) holds the same bits: their integer sums' maximum and
+    minimum over it agree.  Every rank calls it in the same order."""
+    import torch
+    from repro_torch.sharding import axes as ax
+    from repro_torch.sharding import ranks
+    used = {a for e in spec for a in ax._names(e)}
+    used |= set(ax.batch_axes(rules))
+    group, n = ranks.axis_group(mesh, [a for a in mesh.mesh_dim_names
+                                       if a not in used])
+    if n == 1:
+        return True
+    sums = torch.stack([(x.view(torch.int16) if x.element_size() == 2 else
+                         x.view(torch.int32)).sum(dtype=torch.int64)
+                        for x in tensors])
+    return torch.equal(ranks.all_max_(sums.clone(), group),
+                       -ranks.all_max_(-sums, group))
 
 
 def tp_serve_arch(arch, spec, rank, world, dev, mesh, counters):
-    """One arch of `tp_serve_rank`: on rank 0 the one-process run (bf16,
-    greedy: its tokens feed every run) and its twin on the same weights
-    cast to float32 (the bf16 arithmetic's own reach); then on
-    every rank the run under the layout on its blocks, profiled on rank
-    0, with the kernels' launches and the collectives' bytes per prefill
-    and per step; its logits and gathered caches against the one-process
-    run's on rank 0; the logits and the caches the rules replicate over
-    "model" bitwise across the ranks that hold them."""
+    """One arch of `tp_serve_rank` or `sp_serve_rank`: on rank 0 the
+    one-process run in the spec's `dtype` (bf16 unless it names another;
+    greedy: its tokens feed every run) and, of a bf16 run, its twin on
+    the same weights cast to float32 (the bf16 arithmetic's own reach; a
+    float32 run's is 0); then on every rank the
+    run under the layout on its blocks, profiled on rank 0, with the
+    kernels' launches and the collectives' bytes per prefill and per
+    step; its logits and gathered caches against the one-process run's
+    on rank 0; the logits and the caches the rules replicate bitwise
+    across the ranks that hold them.  With `start` every run decodes
+    from that position of caches drawn from a seeded generator
+    (`drawn_caches`, stored in the run's type), not from the prefill's,
+    and the K/V caches are
+    compared at the prompt's rows after the prefill and at the
+    `SP_WINDOW` rows around the middle after the steps; with `replay`
+    the twin's and the layout's routers take the one-process run's
+    expert ids (`RouteLog`), a float32 run's bf16 K/V and conv states
+    (the prefill's) gated beyond one rounding (`stored_gap`)."""
     import gc
     import statistics
     from dataclasses import replace
@@ -4833,55 +4984,86 @@ def tp_serve_arch(arch, spec, rank, world, dev, mesh, counters):
     from repro_torch.sharding import ranks
     rules = tp_serve_rules(spec["layout"])
     cfg = replace(get_config(arch), n_layers=spec["layers"],
-                  use_flash_kernel=True)
+                  use_flash_kernel=True, **spec.get("cfg", {}))
     model = build_model(cfg, dev)
+    name = spec.get("dtype", "bfloat16")
+    dtype = getattr(torch, name)
     B, S, steps, max_seq = (spec["rows"], spec["prompt"], spec["steps"],
                             spec["max_seq"])
-    w = B // ax.axis_sizes(mesh)["data"]
-    lo = mesh.get_coordinate()[1] * w
+    start = spec.get("start")
+    at, mid = S if start is None else start, max_seq // 2
+    kv = ((None, None) if start is None else
+          ((0, S), (mid - SP_WINDOW, mid + SP_WINDOW)))
+    w, lo = rank_rows(mesh, rules, B)
     tokens = torch.as_tensor(np.random.default_rng(34).integers(
         0, cfg.vocab, (B, S)), device=dev)
+    routes = RouteLog() if spec.get("replay") else None
 
     def seed():
         return torch.Generator(device=dev).manual_seed(0)
+
+    def routed(mode):
+        return routes.run(mode) if routes else contextlib.nullcontext()
+
+    def one_run(m, params, mode, **kw):
+        """The one-process run of `m` on `params`: (logits per point, the
+        compared cache leaves, prefill s, decode s per step)."""
+        drawn = None if start is None else drawn_caches(m, B, max_seq, dev,
+                                                        dtype)
+        with torch.no_grad(), routed(mode):
+            points, caches, kept, pre_s, step_s = serve_run(
+                m, params, tokens, max_seq, at, steps, caches=drawn,
+                keep=lambda c: compared_leaves(c, kv[0]), **kw)
+            return points, kept + compared_leaves(caches, kv[1]), pre_s, \
+                step_s
     out = {}
     fed = torch.zeros((steps, B, 1), dtype=torch.int64)
     if rank == 0:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
-        one = model.init(seed(), torch.bfloat16)
-        with torch.no_grad():
-            one_points, caches, one_prefill, one_steps = serve_run(
-                model, one, tokens, max_seq, S, steps, fed=fed)
+        one_points, one_caches, one_prefill, one_steps = one_run(
+            model, model.init(seed(), dtype), "record", fed=fed)
         out["one_peak_gib"] = (torch.cuda.max_memory_allocated()
                                - held) / 2 ** 30
         out.update(one_prefill_ms=one_prefill * 1e3,
                    one_decode_ms=statistics.median(one_steps) * 1e3)
-        one_caches = cache_leaves(caches)
-        del one, caches
-        w32 = float32_tree(model.init(seed(), torch.bfloat16))
-        with torch.no_grad():
-            points32, caches32, _, _ = serve_run(
-                model, w32, tokens, max_seq, S, steps,
-                feed=fed.to(dev))
-        out["reach"] = [rel_gap(a, b) for a, b in zip(points32,
-                                                      one_points)]
-        out["cache_reach"] = [rel_gap(a, b) for a, b in zip(
-            cache_leaves(caches32), one_caches)]
-        del w32, caches32, points32
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["reach"] = [0.0] * len(one_points)      # float32 arithmetic
+        out["cache_reach"] = [0.0] * len(one_caches)
+        if dtype == torch.bfloat16:
+            points32, caches32, _, _ = one_run(
+                model, cast_tree(model.init(seed(), dtype), torch.float32),
+                "replay", feed=fed.to(dev))
+            out["reach"] = [rel_gap(a, b)
+                            for a, b in zip(points32, one_points)]
+            out["cache_reach"] = [rel_gap(a, b)
+                                  for a, b in zip(caches32, one_caches)]
+            del points32, caches32
     gc.collect()
     torch.cuda.empty_cache()
     ranks.all_sum_(fed)             # rank 0's greedy tokens, every rank
     feed = fed.to(dev)
+    if routes:                      # and its routes: the prefill's, the steps'
+        n = zoo_layer_counts(cfg)["gating_topk"]
+        routes.share([B * S] * n + [B] * (n * steps), cfg.top_k)
     dist.barrier()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
-    params = model.init(seed(), torch.bfloat16,
-                        model.param_shardings(mesh, rules))
+    params = model.init(seed(), dtype, model.param_shardings(mesh, rules))
     out["param_gib"] = (torch.cuda.memory_allocated() - held) / 2 ** 30
-    mine = tokens[lo:lo + w]
+    drawn = None if start is None else drawn_caches(
+        model, B, max_seq, dev, dtype, model.cache_shardings(
+            B, max_seq, mesh, rules, dtype))
+    mine, same = tokens[lo:lo + w], []
+
+    def keep(caches):
+        same.extend(ranks_agree([x.to_local()], mesh, rules,
+                                ranks.sharding_of(x).spec)
+                    for x in cache_leaves(caches))
+        return compared_leaves(caches, kv[0])
     with ax.use_rules(rules, mesh), torch.no_grad():
         model.prefill(params, {"tokens": mine[:, :128]}, max_seq)
         torch.cuda.synchronize()
@@ -4906,19 +5088,24 @@ def tp_serve_arch(arch, spec, rank, world, dev, mesh, counters):
                                             counted(real_decode))
         try:
             with (profile(activities=[ProfilerActivity.CUDA])
-                  if rank == 0 else contextlib.nullcontext()) as prof:
+                  if rank == 0 else contextlib.nullcontext()) as prof, \
+                    routed("replay"):
                 t0 = time.perf_counter()
-                points, caches, prefill_s, step_s = serve_run(
-                    model, params, mine, max_seq, S, steps,
-                    feed=feed[:, lo:lo + w])
+                points, caches, kept, prefill_s, step_s = serve_run(
+                    model, params, mine, max_seq, at, steps,
+                    feed=feed[:, lo:lo + w], caches=drawn, keep=keep)
                 wall = time.perf_counter() - t0
         finally:
             model.prefill, model.decode_step = real_prefill, real_decode
+        del drawn
         out.update(prefill_ms=prefill_s * 1e3,
                    decode_ms=statistics.median(step_s) * 1e3,
                    launches=launches, traffic=traffic,
                    peak_gib=(torch.cuda.max_memory_allocated() - held)
                    / 2 ** 30)
+        if routes:
+            out.update(route_flips=routes.flipped, route_rows=routes.rows,
+                       route_want=sum(c.shape[0] for c in routes.calls))
         if rank == 0:
             busy, _ = device_activity(prof)
             out.update(busy=busy, wall=wall)
@@ -4928,43 +5115,30 @@ def tp_serve_arch(arch, spec, rank, world, dev, mesh, counters):
                 bool(torch.equal(p.argmax(-1), feed[i, lo:lo + w, 0]))
                 for i, p in enumerate(points[:-1]))
             del one_points
-        group = mesh.get_group("model")
-        sums = torch.stack([p.view(torch.int32).sum(dtype=torch.int64)
-                            for p in points])
-        same = [torch.equal(ranks.all_max_(sums.clone(), group),
-                            -ranks.all_max_(-sums, group))]
+        same.append(ranks_agree(points, mesh, rules))
         leaves = cache_leaves(caches)
-        gaps = []
-        for i, leaf in enumerate(leaves):
-            spec_ = ranks.sharding_of(leaf).spec
-            if "model" not in [a for e in spec_ for a in ax._names(e)]:
-                x = leaf.to_local()
-                v = x.view(torch.int16) if x.element_size() == 2 else \
-                    x.view(torch.int32)
-                s = v.sum(dtype=torch.int64).reshape(1)
-                same.append(torch.equal(ranks.all_max_(s.clone(), group),
-                                        -ranks.all_max_(-s, group)))
-            full = ranks.gather_dtensor(leaf)
-            if rank == 0:
-                gaps.append(rel_gap(full, one_caches[i]))
-            del full
+        same += [ranks_agree([x.to_local()], mesh, rules,
+                             ranks.sharding_of(x).spec) for x in leaves]
+        got = kept + compared_leaves(caches, kv[1])
         out.update(bitwise_across_ranks=all(same), n_cache_leaves=len(
             leaves), n_cache_sharded=sum(
                 any(ax.axis_sizes(mesh)[a] > 1 for e in
                     ranks.sharding_of(x).spec for a in ax._names(e))
-                for x in leaves))
+                for x in leaves),
+            kv_local=[tuple(x.to_local().shape) for x in kv_leaves(caches)])
         if rank == 0:
-            out["cache_gaps"] = gaps
+            out["cache_gaps"] = [stored_gap(a, b, dtype)
+                                 for a, b in zip(got, one_caches)]
             del one_caches
-    del params, caches, points
+    del params, caches, points, kept, got
     return out
 
 
 def tp_serve_smoke(rank, world, dev):
     """At smoke size, float32, TF32 off: Jamba's period stack under
-    `base_rules(False)` on (1, W/2, 2), `sequence_parallel_rules(False)`
-    on (1, 1, W) (Jamba) and the uneven-heads Mamba2 (3 heads
-    of 32) on (1, W/2, 2), each a prefill of 4 x 6 tokens and 3 decode
+    `base_rules(False)` and the uneven-heads Mamba2 (3 heads of 32) on
+    (1, W/2, 2) (`sequence_parallel_rules` moved to `sp_serve_smoke`),
+    each a prefill of 4 x 6 tokens and 3 decode
     steps on the card's ranks and on a mesh of the same ranks on the CPU
     (gloo), each card step from the CPU ranks' caches before it: (name,
     the largest logit gap over its bound)."""
@@ -4976,7 +5150,6 @@ def tp_serve_smoke(rank, world, dev):
     from repro_torch.models.api import build_model, like_blocks, local_blocks
     from repro_torch.sharding import axes as ax
     cases = [("base", "jamba-1.5-large-398b", (1, world // 2, 2), {}),
-             ("seq_parallel", "jamba-1.5-large-398b", (1, 1, world), {}),
              ("base", "mamba2-2.7b", (1, world // 2, 2),
               {"d_model": 48, "ssm_headdim": 32})]
     rng = np.random.default_rng(35)
@@ -5049,19 +5222,36 @@ def tp_serve_rank(rank, world, dev):
     return out
 
 
-def tp_serve_report(label, arch, spec, res):
-    """Print one arch's `tp_serve_arch` results (`res`, per rank) and
-    return whether they pass the phase's gates."""
+def tp_serve_report(phase, arch, spec, res):
+    """Print one arch's `tp_serve_arch` results (`res`, per rank) under
+    `phase` and return whether they pass its gates: the launches per
+    prefill and per decode step (the spec's `launches`, default: the
+    arch's layers of `ssd_scan` per prefill, or of `gating_topk` per
+    prefill and step); each logit point and cache leaf within
+    TP_SERVE_FACTOR x the one-process run's own reach there, never below
+    TP_SERVE_FLOOR; logits and shared blocks bitwise across the ranks;
+    with `replay` every call's routes replayed and each rank's own at no
+    more than ROUTE_FLIP_SHARE of the token rows apart from them."""
     r0 = res[0]
     layers, steps = spec["layers"], spec["steps"]
     ssm, moe = arch.startswith("mamba2"), "moe" in arch
+    name = spec.get("dtype", "bfloat16")
     bound = [max(TP_SERVE_FLOOR, TP_SERVE_FACTOR * r) for r in r0["reach"]]
     cbound = [max(TP_SERVE_FLOOR, TP_SERVE_FACTOR * r)
               for r in r0["cache_reach"]]
-    print(f"tp serve path ({label}): {arch} full width, {layers} layers, "
-          f"bf16, {spec['layout']} layout, prompt {spec['rows']} x "
+    cut = "".join(f", {k} {v}" for k, v in spec.get("cfg", {}).items())
+    print(f"{phase}: {arch} full width, {layers} layers{cut}, {name}, "
+          f"{spec['layout']} layout, prompt {spec['rows']} x "
           f"{spec['prompt']}, caches of {spec['max_seq']}, {steps} decode "
           f"steps of the one-process run's greedy tokens")
+    if "start" in spec:
+        mid = spec["max_seq"] // 2
+        print(f"  caches drawn from a seeded generator, decode from "
+              f"position {spec['start']}; rank 0's K/V blocks "
+              f"{r0['kv_local']}, the last rank's {res[-1]['kv_local']}; "
+              f"compared: every SSM and conv state, K/V rows 0-"
+              f"{spec['prompt'] - 1} after the prefill and "
+              f"{mid - SP_WINDOW}-{mid + SP_WINDOW - 1} after the steps")
     ok = True
     for r, a in enumerate(res):
         pre, dec = a["traffic"][0], a["traffic"][-1]
@@ -5075,28 +5265,43 @@ def tp_serve_report(label, arch, spec, res):
               f"run's {r0['one_peak_gib']:.2f} GiB; collectives per "
               f"prefill {fmt(pre)}, per decode step {fmt(dec)}; kernel "
               f"launches per prefill {a['launches'][0]}, per decode step "
-              f"{a['launches'][1:3]}...; logits and the caches the rules "
-              f"replicate over 'model' bitwise across the ranks "
+              f"{a['launches'][1:3]}...; logits and the cache blocks "
+              f"that ranks share bitwise across them "
               f"{a['bitwise_across_ranks']}; {a['n_cache_sharded']} of "
               f"{a['n_cache_leaves']} cache leaves sharded")
-        want_pre = {"ssd_scan": layers} if ssm else (
+        want_pre, want_dec = spec.get("launches") or (
+            {"ssd_scan": layers} if ssm else (
+                {"gating_topk": layers} if moe else {}),
             {"gating_topk": layers} if moe else {})
-        want_dec = {"gating_topk": layers} if moe else {}
         ok &= (a["launches"][0] == want_pre
                and all(x == want_dec for x in a["launches"][1:])
                and len(a["launches"]) == steps + 1
                and a["bitwise_across_ranks"] and a["n_cache_sharded"] > 0)
+    if spec.get("replay"):
+        flips = [a["route_flips"] for a in res]
+        rows = r0["route_want"]
+        print(f"  routes: the layout's routers take the "
+              f"one-process run's expert ids; each rank's own top-k ids "
+              f"differ from them at {flips} of {rows} token rows (at most "
+              f"{ROUTE_FLIP_SHARE} of them)")
+        ok &= all(a["route_rows"] == rows and a["route_flips"]
+                  <= ROUTE_FLIP_SHARE * rows for a in res)
     gaps, cgaps = r0["gaps"], r0["cache_gaps"]
+    reach = ("its own distance from its weights in float32: " + ", ".join(
+        f"{g:.2e}" for g in r0["reach"]) if name == "bfloat16" else
+        "it computes in float32 itself (its own distance from float32 "
+        f"arithmetic 0: each bound {TP_SERVE_FLOOR})")
     print(f"  logits' largest gap against the one-process run, relative to "
           f"its largest |logit| (prefill, then each step): "
-          + ", ".join(f"{g:.2e}" for g in gaps)
-          + "; the one-process run's own distance from its weights in "
-          "float32: "
-          + ", ".join(f"{g:.2e}" for g in r0["reach"]))
-    print(f"  gathered caches against the one-process run's, per leaf: "
-          + ", ".join(f"{g:.2e}" for g in cgaps) + "; in float32: "
-          + ", ".join(f"{g:.2e}" for g in r0["cache_reach"]))
-    print(f"tp serve path ({label}) {arch}: prefill {r0['prefill_ms']:.1f} "
+          + ", ".join(f"{g:.2e}" for g in gaps) + f"; {reach}")
+    print("  gathered caches against the one-process run's, per leaf"
+          + ("" if name == "bfloat16" else
+             " (beyond one rounding where it is stored in bf16)") + ": "
+          + ", ".join(f"{g:.2e}" for g in cgaps)
+          + ("; in float32: " + ", ".join(f"{g:.2e}" for g in
+                                          r0["cache_reach"])
+             if name == "bfloat16" else ""))
+    print(f"{phase} {arch}: prefill {r0['prefill_ms']:.1f} "
           f"ms (one process {r0['one_prefill_ms']:.1f}), decode median "
           f"{r0['decode_ms']:.2f} ms a step (one process "
           f"{r0['one_decode_ms']:.2f}); rank 0's profiled run "
@@ -5135,7 +5340,8 @@ def tp_serve_path(timings):
         secs = time.perf_counter() - t0
         ok = True
         for arch, spec in TP_SERVE.items():
-            ok &= tp_serve_report(label, arch, spec, [r[arch] for r in res])
+            ok &= tp_serve_report(f"tp serve path ({label})", arch, spec,
+                                  [r[arch] for r in res])
             for n in out:       # per rank: the prefill's, then each step's
                 per = [[launch.get(n, 0) for launch in r[arch]["launches"]]
                        for r in res]
@@ -5161,6 +5367,334 @@ def tp_serve_path(timings):
                               "prefill's B*S 4096 as one row")
     gating = gating_zoo_shapes(dev, ((4096, 32, 8), (4, 32, 8)), 134)
     timings["tp serve kernel shapes"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return dict(launches=out, ssd=ssd, gating=gating)
+
+
+# ---------------------------------------------------------------------------
+# the second wide model axis: serving under sequence_parallel_rules with
+# "data" > 1, long_500k's layout (heads and SSM mixers over "data";
+# residual, MLP, experts, vocabulary and KV sequence over "model")
+# ---------------------------------------------------------------------------
+
+# Each arch at full width on random weights, the kernels' ops on, under
+# `sequence_parallel_rules(False)` on a (1, W/2, 2) mesh of
+# `sp_layouts`' ranks, batch 1 (long_500k's), each against its
+# one-process run fed the same tokens and caches.  Mamba2 in bf16 at 32
+# of 64 layers (40 of its 80 SSM heads a "data" rank), a 1 x 1024 prompt
+# and 32 decode steps.  Jamba at one period (8 layers: attention at 3,
+# MoE at 1, 3, 5, 7): a 1 x 1024 prefill into a cache of long_500k's
+# 524288 positions, then 16 decode steps from position 262136 on a cache
+# drawn from a seeded generator (K/V, SSM and conv states), so that steps
+# 9-16 write into "model" rank 1's slice.  Jamba runs in float32 (its
+# caches stored in bf16, as ever): in bf16 its random-weight period took
+# rounding alone to 0.23 of its largest logit at the prefill (the float32
+# twin's distance, on an H100 80GB HBM3 at 700 W), where the gate would
+# hide a wrong block; in float32 each point's bound is TP_SERVE_FLOOR
+# (its own distance from float32 arithmetic is 0), each bf16 cache leaf's
+# (the prefill's conv and K/V states) beyond one rounding
+# (`stored_gap`).  Its decode runs on caches stored in float32: stored
+# in bf16, each step's written conv and K/V rows round apart on the two
+# sides wherever a value sits at a rounding boundary, and the random
+# period took that to 4.3e-2 of the largest logit by the fourth step
+# (the first step, on the drawn bits alone, 1.2e-6; same card).  float32
+# doubles the weights: d_ff is cut from the
+# zoo's 8192 to 1024 (a rank held 6.97 GiB of bf16 blocks at 2048, four
+# ranks in float32 with their caches would pass 80 GB); d_ff sets no
+# kernel's shape.
+SP_SERVE = {
+    "mamba2-2.7b": dict(layers=32, layout="seq_parallel", rows=1,
+                        prompt=1024, max_seq=1056, steps=32,
+                        launches=({"ssd_scan": 32}, {})),
+    "jamba-1.5-large-398b": dict(
+        layers=8, cfg=dict(d_ff=1024), dtype="float32",
+        layout="seq_parallel", rows=1, prompt=1024, max_seq=524288,
+        steps=16, start=262136, replay=True,
+        launches=({"ssd_scan": 7, "gating_topk": 4}, {"gating_topk": 4})),
+}
+# rows of the K/V caches compared after Jamba's steps, centred on the
+# boundary of the "model" ranks' slices (262144): the steps write 262136-
+# 262151
+SP_WINDOW = 16
+
+
+def sp_layouts():
+    """(backend, device, ranks): four gloo ranks sharing card 0, and one
+    NCCL rank per card where four or more (an even number) are
+    visible."""
+    import torch
+    out = [("gloo", "cuda:0", 4)]
+    n = torch.cuda.device_count()
+    if n >= 4 and n % 2 == 0:
+        out.append(("cpu:gloo,cuda:nccl", "cuda", n))
+    return out
+
+
+def drawn_caches(model, rows, max_seq, dev, dtype, shardings=None,
+                 seed=35):
+    """Caches of `rows` x `max_seq` positions drawn from a seeded
+    generator on `dev`, the same numbers in every call: K/V and conv
+    states normal bf16 values stored in `dtype`, the SSM state normal in
+    float32; with `shardings` (`Model.cache_shardings`) each leaf this
+    rank's block, placed as it is drawn."""
+    import torch
+    from repro_torch.models import lm
+    shapes = lm.init_caches(model.cfg, rows, max_seq, torch.bfloat16,
+                            "meta")
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(t, s):
+        if isinstance(t, dict):
+            return {k: draw(t[k], None if s is None else s[k])
+                    for k in sorted(t)}
+        if isinstance(t, tuple):
+            return type(t)(*(draw(x, None if s is None else s[i])
+                             for i, x in enumerate(t)))
+        x = torch.randn(t.shape, generator=g, device=dev, dtype=t.dtype)
+        if t.dtype == torch.bfloat16:
+            x = x.to(dtype)
+        return x if s is None else s.place(x)
+    return draw(shapes, shardings)
+
+
+class RouteLog:
+    """While active (`run`), records the expert ids of each router call
+    of a run, kernel (`moe.fused_gating`) or plain
+    (`moe.reference_gating`) ("record"), or has each call take the ids
+    recorded at the same call ("replay"): a row whose own id set differs
+    from the replayed one is counted (`flipped`, of `rows`) and takes the
+    replayed ids, their probabilities renormalised in the kernel's order
+    (`reference_gating`'s arithmetic); every other row keeps the call's
+    own gates and ids.  Jamba's random router ranks near-tied experts, so
+    a rounding may flip a route, and a flipped route moves a token's
+    residual by O(1): runs compared point by point take the same
+    routes."""
+
+    def __init__(self):
+        self.calls, self.at, self.flipped, self.rows = [], 0, 0, 0
+
+    def route(self, mode, own, logits):
+        import torch
+        from repro_torch.kernels.moe_gating.ref import lane_butterfly_sum
+        gate, idx = own
+        if mode == "record":
+            self.calls.append(idx.clone())
+            return gate, idx
+        ids = self.calls[self.at].to(idx.device, idx.dtype)
+        self.at += 1
+        same = (idx.sort(-1).values == ids.sort(-1).values).all(-1)
+        self.rows += ids.shape[0]
+        self.flipped += int((~same).sum())
+        x = logits.float()
+        p = torch.exp(x - x.amax(dim=-1, keepdim=True))
+        p = p / lane_butterfly_sum(p)[:, None]
+        g = p.gather(1, ids.long())
+        total = g[:, 0]
+        for j in range(1, g.shape[1]):
+            total = total + g[:, j]
+        g = (g / torch.clamp_min(total, 1e-9)[:, None]).to(gate.dtype)
+        return (torch.where(same[:, None], gate, g),
+                torch.where(same[:, None], idx, ids))
+
+    def share(self, rows, k):
+        """Every rank's copy of rank 0's recorded ids: one call for each
+        entry of `rows` (its token rows), `k` ids a row (an all-sum of the
+        flat ids, zeros off rank 0)."""
+        import torch
+        from repro_torch.sharding import ranks
+        flat = torch.zeros(sum(rows) * k, dtype=torch.int64)
+        if self.calls:
+            flat[:] = torch.cat([c.reshape(-1).long().cpu()
+                                 for c in self.calls])
+        ranks.all_sum_(flat)
+        self.calls = [c.view(n, k) for c, n in
+                      zip(flat.split([n * k for n in rows]), rows)]
+
+    def run(self, mode):
+        """A context in which the model's router calls go through `route`
+        in `mode` ("record" or "replay", from the first call)."""
+        from repro_torch.models import moe
+        log = self
+
+        class Active:
+            def __enter__(self):
+                log.at = log.flipped = log.rows = 0
+                self.real = fused, plain = (moe.fused_gating,
+                                            moe.reference_gating)
+                moe.fused_gating = lambda x, k, interpret=False: log.route(
+                    mode, fused(x, k, interpret=interpret), x)
+                moe.reference_gating = lambda x, k: log.route(
+                    mode, plain(x, k), x)
+
+            def __exit__(self, *exc):
+                moe.fused_gating, moe.reference_gating = self.real
+                return False
+        return Active()
+
+
+def sp_serve_smoke(rank, world, dev):
+    """At smoke size, float32, TF32 off, on (1, W/2, 2) and (moved from
+    `tp_serve_smoke`) Jamba on (1, 1, W): `sequence_parallel_rules` for
+    Jamba, qwen3 with 3 K/V heads (they do not divide over "data") and
+    the uneven-heads Mamba2, `fsdp_rules` over them for Jamba, each a
+    prefill of 4 x 6 tokens and 3 decode steps on the card's ranks and
+    on a mesh of the same ranks on the CPU (gloo), each card step from
+    the CPU ranks' caches before it; then qwen3's scoring loss with the
+    flash op on, its launches per rank counted: (name, the largest logit
+    gap over its bound) and (flash launches, the loss gap over its
+    bound)."""
+    from dataclasses import replace
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.kernels.flash_attention import kernel as flash_ker
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.api import build_model, like_blocks, local_blocks
+    from repro_torch.sharding import axes as ax
+    sp = tp_serve_rules("seq_parallel")
+    wide = (1, world // 2, 2)
+    jamba = "jamba-1.5-large-398b"
+    cases = [("seq_parallel", jamba, (1, 1, world), sp, {}),
+             ("seq_parallel", jamba, wide, sp, {}),
+             ("fsdp seq_parallel", jamba, wide, ax.fsdp_rules(sp, False), {}),
+             ("seq_parallel", "qwen3-1.7b", wide, sp,
+              {"n_heads": 6, "n_kv_heads": 3}),
+             ("seq_parallel", "mamba2-2.7b", wide, sp,
+              {"d_model": 48, "ssm_headdim": 32})]
+    rng = np.random.default_rng(35)
+    tokens = rng.integers(0, 512, (4, 6))
+    steps = rng.integers(0, 512, (3, 4, 1))
+    out = []
+    for layout, arch, shape, rules, changes in cases:
+        cfg = replace(get_smoke_config(arch), use_flash_kernel=True,
+                      **changes)
+        points, before = [], []
+        for d in (torch.device("cpu"), dev):
+            mesh = make_test_mesh(shape, DP_NAMES, d.type)
+            model = build_model(cfg, d)
+            params = model.init(torch.Generator().manual_seed(0),
+                                torch.float32,
+                                model.param_shardings(mesh, rules))
+            with ax.use_rules(rules, mesh), torch.no_grad():
+                logits, caches = model.prefill(params, {
+                    "tokens": torch.as_tensor(tokens, device=d)}, 16)
+                got = [logits.cpu()]
+                for i in range(3):
+                    if len(points) == 0:        # the CPU ranks' run
+                        before.append(cache_copy(local_blocks(caches), d))
+                    else:
+                        caches = like_blocks(cache_copy(before[i], d),
+                                             caches)
+                    logits, caches = model.decode_step(params, torch.as_tensor(
+                        steps[i], device=d), 6 + i, caches)
+                    got.append(logits.cpu())
+            points.append(got)
+        atol = TP_SERVE_SMOKE_ATOL.get(arch, 1e-5)
+        worst = max(float(((c - h).abs() / (1e-5 * h.abs() + atol + 1e-5
+                                             * h.abs().max())).max())
+                    for h, c in zip(*points))
+        out.append((f"{layout} {arch}"
+                    f"{' ' + str(changes) if changes else ''} {shape}",
+                    worst))
+    cfg = replace(get_smoke_config("qwen3-1.7b"), use_flash_kernel=True)
+    batch = rng.integers(0, 512, (4, 32))
+    losses, launches = [], 0
+    for d in (torch.device("cpu"), dev):
+        mesh = make_test_mesh(wide, DP_NAMES, d.type)
+        model = build_model(cfg, d)
+        params = model.init(torch.Generator().manual_seed(0), torch.float32,
+                            model.param_shardings(mesh, sp))
+        flash_ker.flash_attention_bhsd.launches = 0
+        with ax.use_rules(sp, mesh), torch.no_grad():
+            losses.append(float(model.loss(params, {
+                "tokens": torch.as_tensor(batch, device=d)})[0]))
+        launches = flash_ker.flash_attention_bhsd.launches
+    score = (launches, abs(losses[1] - losses[0])
+             / (1e-5 * abs(losses[0]) + 1e-5))
+    return out, score
+
+
+def sp_serve_rank(rank, world, dev):
+    """One rank of `sp_serve_path`: `tp_serve_arch` for each arch of
+    `SP_SERVE` under `sequence_parallel_rules` on (1, W/2, 2), then
+    `sp_serve_smoke`.  Returns numbers only."""
+    import gc
+    import torch
+    from repro_torch.launch.mesh import make_test_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = kernel_counters()
+    mesh = make_test_mesh((1, world // 2, 2), DP_NAMES, dev.type)
+    out = {}
+    for arch, spec in SP_SERVE.items():
+        out[arch] = tp_serve_arch(arch, spec, rank, world, dev, mesh,
+                                  counters)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["smoke"] = sp_serve_smoke(rank, world, dev)
+    return out
+
+
+def sp_serve_path(timings):
+    """Mamba2-2.7B and Jamba's period served over each of `sp_layouts`'
+    rank sets under `sequence_parallel_rules` (`spawn_ranks`, one process
+    per rank) with the smoke checks beside them, then `ssd_scan` at a
+    "data" rank's shapes and `gating_topk` at Jamba's router shapes
+    against their plain versions; fails on any rank's error or failed
+    check.  Returns the launches per rank and the kernels' numbers."""
+    import gc
+    import torch
+    from repro_torch.sharding.ranks import spawn_ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"ssd_scan": {}, "gating_topk": {}, "flash_attention": {}}
+    for backend, device, world in sp_layouts():
+        label = (f"{backend}, {world} ranks on "
+                 + (device if ":" in device else f"{world} cards")
+                 + f", mesh (1, {world // 2}, 2), sequence_parallel_rules")
+        t0 = time.perf_counter()
+        res = spawn_ranks(sp_serve_rank, world, backend, device)
+        secs = time.perf_counter() - t0
+        ok = True
+        for arch, spec in SP_SERVE.items():
+            ok &= tp_serve_report(f"sp serve path ({label})", arch, spec,
+                                  [r[arch] for r in res])
+            for n in out:       # per rank: the prefill's, then each step's
+                per = [[launch.get(n, 0) for launch in r[arch]["launches"]]
+                       for r in res]
+                if any(map(any, per)):
+                    out[n][f"{arch} {backend}"] = per
+        cases, (flash, loss_gap) = res[0]["smoke"]
+        for name, worst in cases:
+            print(f"sp serve smoke check ({label}) {name}: card against "
+                  f"CPU ranks, float32, logits within {worst:.3f} of "
+                  f"their bound")
+            ok &= worst <= 1
+        per_rank = [r["smoke"][1][0] for r in res]
+        print(f"sp serve smoke check ({label}): qwen3's scoring loss with "
+              f"the flash op on a 'data' rank's heads, card against CPU "
+              f"ranks within {loss_gap:.3f} of rtol 1e-5 + 1e-5; flash "
+              f"launches per rank {per_rank} (want 2 each: its layers)")
+        ok &= loss_gap <= 1 and per_rank == [2] * world
+        out["flash_attention"][f"smoke scoring {backend}"] = per_rank
+        print(f"sp serve path ({label}): {secs:.1f} s")
+        timings[f"sp serve {backend}"] = secs
+        if not ok:
+            raise AssertionError(f"sp serve path ({label}) failed its "
+                                 "checks")
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    ssd = {
+        "mamba2 40 of 80 heads": ssd_zoo_shape(
+            dev, S=1024, nh=40, hd=64, st=128, seed=35,
+            label="a 'data' rank's 40 of Mamba2's 80 heads, the prefill's "
+                  "B*S 1024"),
+        "jamba 128 of 256 heads float32": ssd_f32_shape(
+            dev, S=1024, nh=128, hd=64, st=16, seed=36,
+            label="a 'data' rank's 128 of Jamba's 256 heads, the "
+                  "prefill's B*S 1024")}
+    gating = gating_zoo_shapes(dev, ((1024, 16, 2), (1, 16, 2)), 135)
+    timings["sp serve kernel shapes"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     return dict(launches=out, ssd=ssd, gating=gating)
 
@@ -5438,6 +5972,45 @@ def ssd_zoo_shape(dev, S=1024, nh=None, hd=None, st=None,
           f"{t_flop * 1e6:.3f} us); kernel at {bound_s * 1e3 / ms:.3f} of the "
           f"bound")
     return dict(max_abs_err=split["err"], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_s * 1e3, bound_by=by, library_ms=None)
+
+
+def ssd_f32_shape(dev, S, nh, hd, st, seed, label):
+    """The CUDA-core kernel on float32 inputs at `label`'s shape (a
+    float32 run's prefill), bitwise its plain version (as
+    `check_ssd_kernel`'s float32 case); then times beside the bound on
+    the float32 CUDA cores."""
+    import torch
+    from repro_torch.kernels.ssd_scan import kernel as ker
+    from repro_torch.kernels.ssd_scan.ref import reference_intra_chunk
+    Q = 128
+    xdt, log_a, b, c = ssd_inputs(dev, S, seed=seed, nh=nh, hd=hd, st=st)
+    args = (xdt.float(), log_a, b.float(), c.float())
+    if ker.uses_tensor_cores(Q, hd, st, torch.float32):
+        raise AssertionError(f"ssd_scan at {label}: expected the CUDA-core "
+                             "kernel")
+    got = ker.ssd_intra_chunk(*args, Q)
+    want = reference_intra_chunk(*args, Q)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"ssd_scan at {label}: the CUDA-core kernel "
+                             "differs from its plain version")
+    ms = kernel_device_ms(lambda: ker.ssd_intra_chunk(*args, Q), 50,
+                          "ssd_intra_chunk")
+    plain_ms = cuda_time_ms(lambda: reference_intra_chunk(*args, Q), 3)
+    n_bytes, n_flop = ssd_bound(S, Q, nh, hd, st, in_bytes=4)
+    t_bytes, t_flop = n_bytes / HBM_BYTES_PER_S, n_flop / FP32_FLOP_PER_S
+    by = "bytes" if t_bytes >= t_flop else "operations"
+    bound_s = max(t_bytes, t_flop)
+    print(f"kernel check: ssd_scan S={S}, {nh} heads x {hd}, state {st}, "
+          f"chunk {Q} ({label}), float32, CUDA cores: all four outputs "
+          f"bitwise its plain version (reference_intra_chunk); device time "
+          f"per launch {ms * 1e3:.3f} us, plain version {plain_ms * 1e3:.3f} "
+          f"us by CUDA events; bound {bound_s * 1e6:.3f} us ({by}: {n_bytes} "
+          f"B at 3.35 TB/s = {t_bytes * 1e6:.3f} us, {n_flop} flop at 67 "
+          f"TFLOP/s float32 = {t_flop * 1e6:.3f} us); kernel at "
+          f"{bound_s * 1e3 / ms:.3f} of the bound")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_s * 1e3, bound_by=by, library_ms=None)
 
 
@@ -6208,6 +6781,7 @@ def main():
     timings["tp kernel shapes"] = time.perf_counter() - t0 - sum(
         v for k, v in timings.items() if k.startswith("tp train"))
     tp_serve = tp_serve_path(timings)
+    sp_serve = sp_serve_path(timings)
     zoo = zoo_section(dev, timings)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in timings.items())
@@ -6236,7 +6810,9 @@ def main():
              **ssd_stats, zoo_launches=zoo["launches"]["ssd_scan"],
              zoo_shape=zoo["ssd"],
              tp_serve_launches=tp_serve["launches"]["ssd_scan"],
-             tp_serve_rank_shape=tp_serve["ssd"]),
+             tp_serve_rank_shape=tp_serve["ssd"],
+             sp_serve_launches=sp_serve["launches"]["ssd_scan"],
+             sp_serve_rank_shapes=sp_serve["ssd"]),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:67",
@@ -6245,7 +6821,8 @@ def main():
              zoo_shapes=zoo["flash"], tp_launches=tp_launches,
              tp_rank_shape=tp_flash,
              tp_path_shapes_max_abs_err={
-                 k: v for k, v in tp_kernels.items() if "flash" in k}),
+                 k: v for k, v in tp_kernels.items() if "flash" in k},
+             sp_smoke_launches=sp_serve["launches"]["flash_attention"]),
         dict(name="gating_topk", route="cuda",
              source="src/repro_torch/csrc/moe_gating.cu",
              replaces="src/repro/kernels/moe_gating/kernel.py:41",
@@ -6255,7 +6832,9 @@ def main():
              tp_path_shape_max_abs_err=tp_kernels[
                  "gating N 2056 E 32 k 8"],
              tp_serve_launches=tp_serve["launches"]["gating_topk"],
-             tp_serve_rank_shapes=tp_serve["gating"])]}))
+             tp_serve_rank_shapes=tp_serve["gating"],
+             sp_serve_launches=sp_serve["launches"]["gating_topk"],
+             sp_serve_rank_shapes=sp_serve["gating"])]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,7 +23,9 @@ on the rules' batch axes), the logits are those rows' whole logits, and
 the caches are DTensors of this rank's blocks under
 `cache_shardings(batch, max_seq, mesh, rules)` (`init_caches(...,
 shardings=)`; `prefill` makes them): their global shapes tell `lm` the
-K/V length.
+K/V length.  Under `sequence_parallel_rules` with "data" > 1 every rank
+holds every row, and a K/V block is [B, S/M, Hk/D, hd], an SSM state
+block [B, H/D, P, N].
 """
 from __future__ import annotations
 
@@ -67,9 +69,10 @@ class Model:
 
     def check_layout(self, rules: ax.Rules, mesh):
         """Raise `NotImplementedError` for a layout of this model that the
-        port does not run: the sequence, or model-parallel axes on a
-        second wide axis (`axes.check_ported`), and the encoder-decoder
-        under any layout that shards more than the batch."""
+        port does not run: the sequence on a wide axis, or model-parallel
+        axes where `axes.check_ported` refuses them, and the
+        encoder-decoder under any layout that shards more than the
+        batch."""
         logical = {a for _, p in leaves(self.spec) for a in p.axes}
         logical |= {"batch", "seq", "seq_kv", "act_embed"}
         ax.check_ported(rules, mesh, sorted(a for a in logical if a))

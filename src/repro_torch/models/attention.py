@@ -12,27 +12,34 @@ Every family runs through it (GQA groups of 1 to 8 query heads per K/V
 head); with `cfg.mrope_sections` and `positions3` the rotation is
 M-RoPE, else RoPE.
 
-Under a tensor-parallel axis (`sharding.tp`) that the rules put the
-heads on, the scoring and training attention computes this rank's range
-of query heads and the K/V heads they read (`_local_heads`), and
-`attention` returns its partial sum of the output projection; qk-norm
-and the rotation act per head.  Where the rules leave the heads off the
-axis (`sequence_parallel_rules`) every rank computes them all.
+Under a wide mesh axis that the rules put the heads on (`sharding.tp`
+`axis_of`: "model" under `base_rules`, "data" under
+`sequence_parallel_rules` with "data" > 1), the scoring and training
+attention computes this rank's range of query heads on that axis and
+the K/V heads they read (`_local_heads`), and `attention` returns its
+partial sum of the output projection; qk-norm and the rotation act per
+head.  Where the rules put the heads on no wide axis
+(`sequence_parallel_rules` with "data" 1) every rank computes them all.
 
-Serving under such an axis (`prefill_attention`, `decode_attention`,
-each given the cache's global length `max_seq`): the rank's q heads,
-and the K/V heads its cache block holds (`_serve_heads`): its block of
-them where the rules shard `kv_heads`, else all of them, every rank
-writing the same whole cache.  Where the rules put the cache's sequence
-(`seq_kv`) on the axis (`decode_32k`'s layout, `sequence_parallel_rules`)
-rank r holds positions [r·Sl, (r+1)·Sl), Sl = max_seq / M.  Prefill
-then attends over the whole prompt and writes only the rank's positions;
-decode gathers the one-token q over the axis, writes the new row on the
-rank that holds `pos`, and each rank attends every q head over its
-positions: the partial softmax merges by an all-reduce of the row
-maxima and then one of the rescaled sums and weighted values
-(`_merged_decode`), flash-decoding's combine.  The cache is never
-gathered.  The write's clamp (`_write`) is taken on the global length.
+Serving (`prefill_attention`, `decode_attention`, each given the
+cache's global length `max_seq`): the rank's q heads, and the K/V heads
+its cache block holds (`_serve_heads`): its block of them where the
+rules shard `kv_heads` on the heads' axis, else all of them (K/V heads
+that do not divide over it, 8 over 16 in the reference's dry-run), every
+rank of that axis writing the same whole cache heads.  Where the rules
+put the cache's sequence (`seq_kv`) on a wide axis (`decode_32k`'s
+layout and `sequence_parallel_rules`: "model") rank r of it holds
+positions [r·Sl, (r+1)·Sl), Sl = max_seq / M, so the cache block is
+[B, Sl, its K/V heads, hd].  Prefill then attends over the whole prompt
+and writes only the rank's positions; decode writes the new row on the
+rank that holds `pos`, and each rank attends its q heads over its
+positions: the q heads of the whole axis gathered first where the heads
+lie on the sequence's axis (`decode_32k`), its own heads where they lie
+on another ("data").  The partial softmax merges over the sequence's
+axis by an all-reduce of the row maxima and then one of the rescaled
+sums and weighted values (`_merged_decode`), flash-decoding's combine.
+The cache is never gathered.  The write's clamp (`_write`) is taken on
+the global length.
 """
 from __future__ import annotations
 
@@ -75,10 +82,10 @@ def _local_heads(cfg: ArchConfig, p):
     [lo // G, (hi − 1) // G], a block of the rules' where they shard
     kv_heads, else a narrowing of the whole K/V weights (kv_heads do not
     divide over the axis, e.g. fewer than its size: one K/V head may
-    serve the q heads of several ranks).  `p` and None without a
-    tensor-parallel axis."""
-    tp = tpl.context()
-    if tp is None or not tp.splits("heads"):
+    serve the q heads of several ranks).  `p` and None where the heads
+    lie on no wide axis."""
+    tp = tpl.axis_of("heads")
+    if tp is None:
         return p, None
     H, Hk = cfg.n_heads, cfg.n_kv_heads
     G = H // Hk
@@ -290,12 +297,12 @@ def _serve_heads(cfg: ArchConfig, p, cache: KVCache):
     that range where they do not group evenly, else None).  The cache
     holds the rules' block of the K/V heads, or all of them where
     `kv_heads` falls back to replicated (or is not on the axis); every
-    rank then computes them all.  `p` whole without a tensor-parallel
-    axis that splits the heads."""
+    rank then computes them all.  `p` whole where the heads lie on no
+    wide axis."""
     H, Hk = cfg.n_heads, cfg.n_kv_heads
-    tp = tpl.context()
+    tp = tpl.axis_of("heads")
     held = cache.k.shape[2]
-    if tp is None or not tp.splits("heads"):
+    if tp is None:
         return p, (0, held), None
     G = H // Hk
     lo, hi = tp.range(H)
@@ -318,11 +325,11 @@ def _serve_heads(cfg: ArchConfig, p, cache: KVCache):
 
 def _kv_all(cfg: ArchConfig, k, v, cache: KVCache):
     """k, v projected for the heads the K/V weights give, gathered over
-    the axis where the cache holds more of them (`kv_heads` split over the
-    axis in the weights while the cache's sequence takes the axis)."""
+    their axis where the cache holds more of them (`kv_heads` split over
+    the axis in the weights while the cache's sequence takes the axis)."""
     if k.shape[2] == cache.k.shape[2]:
         return k, v
-    tp = tpl.context()
+    tp = tpl.axis_of("kv_heads")
     return (tp.gather_ranges(k, 2, cfg.n_kv_heads),
             tp.gather_ranges(v, 2, cfg.n_kv_heads))
 
@@ -338,12 +345,12 @@ def _read(k, v, span, of_q):
 
 
 def _seq_block(cache: KVCache, max_seq: Optional[int]):
-    """(the tensor-parallel context, the first position this rank's cache
-    holds) where the cache's sequence is split over the axis, else
-    (None, 0)."""
+    """(the sequence's axis, the first position this rank's cache holds)
+    where the cache's sequence is split over a wide axis, else (None,
+    0)."""
     if max_seq is None or cache.k.shape[1] == max_seq:
         return None, 0
-    tp = tpl.context()
+    tp = tpl.axis_of("seq_kv")
     if tp is None or cache.k.shape[1] * tp.n != max_seq:
         raise ValueError(f"a cache of {cache.k.shape[1]} positions for a "
                          f"length of {max_seq}")
@@ -411,7 +418,10 @@ def decode_attention(cfg: ArchConfig, p, x, pos: int, cache: KVCache,
         split = tp.splits("heads")
         if split:               # every q head, to attend this rank's slice
             q = tp.gather_ranges(q, 2, cfg.n_heads)
-        out = _merged_decode(cfg, tp, q, cache.k, cache.v, pos, offset)
+            k, v = cache.k, cache.v
+        else:                   # this rank's heads, whole or on "data"
+            k, v = _read(cache.k, cache.v, span, of_q)
+        out = _merged_decode(cfg, tp, q, k, v, pos, offset)
         if split:
             out = out[:, :, slice(*tp.range(cfg.n_heads))]
     else:

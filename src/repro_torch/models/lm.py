@@ -24,19 +24,21 @@ prepended to the token embeddings; no loss on it); its three position
 streams are the same stream, as the reference builds them
 (`_positions3`).  The audio family is `encdec`'s.
 
-Under a tensor-parallel axis (`sharding.tp`; `base_rules`, `decode_32k`'s
-layout or `sequence_parallel_rules` with "model" larger than 1) every
-entry point holds the residual stream as this rank's block of
-`act_embed`: each block gathers it before its norm, and the mixer's and
-the FFN's outputs go back to the block (`tp.out`: a reduce-scatter of
-partial sums, or the block of a whole sum where the rules leave the
-mixer's axis off "model").  Prefill and decode take this rank's blocks
-of the caches (`Model.init_caches(..., shardings=)`) and the caches'
-global K/V length (`max_seq`), which tells a block of the sequence from
-a whole one; the logits are gathered whole on every rank
-(`layers.unembed`).  Under `fsdp_rules` each layer's parameters, and the
-embedding's at each use, are gathered over the data axes inside the
-remat'd layer (`tp.fsdp_gather`).
+Under a tensor-parallel axis (`sharding.tp`; `base_rules`,
+`decode_32k`'s layout or `sequence_parallel_rules` with "model" larger
+than 1) every entry point holds the residual stream as this rank's block
+of `act_embed`: each block gathers it before its norm, and the mixer's
+and the FFN's outputs go back to the block (`tp.out`: a reduce-scatter
+of partial sums, the block of the partial sums all-reduced over the
+mixer's second axis, "data" under `sequence_parallel_rules`, or the
+block of a whole sum where the rules put the mixer on no wide axis). A
+mixer on a second axis takes its input through `tp.enter`. Prefill and
+decode take this rank's blocks of the caches (`Model.init_caches(...,
+shardings=)`) and the caches' global K/V length (`max_seq`), which tells
+a block of the sequence from a whole one; the logits are gathered whole
+on every rank (`layers.unembed`). Under `fsdp_rules` each layer's
+parameters, and the embedding's at each use, are gathered over the data
+axes inside the remat'd layer (`tp.fsdp_gather`).
 """
 from __future__ import annotations
 
@@ -119,7 +121,8 @@ def _apply_block(cfg: ArchConfig, mixer: str, ffn: str, p, x, *,
     """Pre-norm mixer block with its residual, then the FFN and its
     residual (no FFN in the SSM family).  Returns (x, cache, aux): the
     MoE layer's aux loss in training mode, else None."""
-    h = rms_norm(tpl.gather(x), p["norm1"], cfg.norm_eps)
+    logical = "heads" if mixer == "attn" else "ssm_inner"
+    h = tpl.enter(rms_norm(tpl.gather(x), p["norm1"], cfg.norm_eps), logical)
     new_cache = cache
     if mixer == "attn":
         if mode == "train":
@@ -136,7 +139,7 @@ def _apply_block(cfg: ArchConfig, mixer: str, ffn: str, p, x, *,
     else:
         y, new_cache = ssm_lib.ssm_apply(cfg, p["mixer"], h, cache,
                                          interpret=interpret)
-    x = x + tpl.out(y, "heads" if mixer == "attn" else "ssm_inner")
+    x = x + tpl.out(y, logical)
     aux = None
     if ffn != "none":
         h = rms_norm(tpl.gather(x), p["norm2"], cfg.norm_eps)

@@ -12,23 +12,25 @@ is stored in the cache's type.
 Layout: d_inner = expand·d_model = n_heads·head_dim; a single B/C group
 shared across heads (the Mamba2 default).
 
-Under a tensor-parallel axis that the rules put `ssm_heads` and
-`ssm_inner` on (`base_rules`; `sharding.tp`), each rank runs the mixer
-on its range of the heads, [lo, hi) = `TP.range(n_heads)`, and the
-d_inner columns [lo·hd, hi·hd) of z, x, the conv and the gate
+Under a wide mesh axis that the rules put `ssm_heads` and `ssm_inner`
+on (`sharding.tp` `axis_of`: "model" under `base_rules`, "data" under
+`sequence_parallel_rules` with "data" > 1), each rank runs the mixer on
+its range of the heads on that axis, [lo, hi) = `TP.range(n_heads)`,
+and the d_inner columns [lo·hd, hi·hd) of z, x, the conv and the gate
 (`_local_params`: the rules' block of a weight where it is that range,
 else the whole weight narrowed, or the blocks all-gathered and narrowed
 where `ssm_inner` divides over the axis and the heads do not); b and c,
 whose weights every rule replicates, whole.  The gate's RMS norm is
-over the whole d_inner: its mean square is the all-reduce of the ranks'
-float32 sums of squares (`_gate_norm`).  The output projection returns
-the rank's partial sum.  The caches: the state `h` is the rules' block
-of the heads, or whole, gathered over the axis, where they do not
-divide; the conv state, which every rule replicates, is whole on every
-rank, its x columns all-gathered (the last K−1 rows at prefill, the new
-row a decode step).  Where the rules leave the SSM axes off the
-tensor-parallel axis (`sequence_parallel_rules`) every rank runs the
-whole mixer.
+over the whole d_inner: its mean square is the all-reduce over the axis
+of the ranks' float32 sums of squares (`_gate_norm`).  The output
+projection returns the rank's partial sum (`sharding.tp.out` takes it
+back to the residual's block).  The caches: the state `h` is the rules'
+block of the heads, [B, H/D, hd, st], or whole, gathered over the axis,
+where they do not divide; the conv state, which every rule replicates,
+is whole and bitwise equal on every rank, its x columns all-gathered
+(the last K−1 rows at prefill, the new row a decode step).  Where the
+rules put the SSM axes on no wide axis (`sequence_parallel_rules` with
+"data" 1) every rank runs the whole mixer.
 """
 from __future__ import annotations
 
@@ -159,10 +161,10 @@ def _project(cfg: ArchConfig, p, x):
 
 
 def _plan(cfg: ArchConfig):
-    """(the tensor-parallel context, this rank's heads [lo, hi)) where the
-    rules split the SSM mixers over the axis, else (None, (0, n_heads))."""
-    tp = tpl.context()
-    if tp is None or not (tp.splits("ssm_heads") or tp.splits("ssm_inner")):
+    """(the SSM mixers' wide axis, this rank's heads [lo, hi) on it) where
+    the rules split them over one, else (None, (0, n_heads))."""
+    tp = tpl.axis_of("ssm_heads") or tpl.axis_of("ssm_inner")
+    if tp is None:
         return None, (0, cfg.ssm_heads)
     return tp, tp.range(cfg.ssm_heads)
 

@@ -34,10 +34,12 @@ full tensor.  What GSPMD inserts implicitly in `repro` the port does
 with explicit collectives on each axis's process group: the batch's in
 `train.step.make_train_step(mesh=, rules=)`, tensor and expert
 parallelism's, the SSM mixers', the KV cache's sequence and FSDP's in
-the model code (`sharding.tp`).  The model is split over one mesh axis,
-the residual's (`model_axis`); model-parallel axes on a second wide
-axis and the sequence on a wide axis are not ported yet and raise
-(`check_ported`).
+the model code (`sharding.tp`).  The model is split over the
+residual's mesh axis (`model_axis`) and, under `sequence_parallel_rules`
+with "data" larger than 1, its mixers (attention's heads, the SSM's)
+over a second one (`mixer_axis`); the sequence on a wide axis and the
+encoder-decoder under wide layouts are not ported yet and raise
+(`check_ported`, `Model.check_layout`).
 """
 from __future__ import annotations
 
@@ -340,40 +342,56 @@ def batch_axes(rules: Rules) -> Tuple[str, ...]:
     return _names(rules.get("batch"))
 
 
-# what the next slice ports (ROADMAP queue 1, item 11b)
-NEXT_SLICE = ("the next slice of the port (ROADMAP queue 1, item 11b): "
-              "model-parallel axes on a second wide mesh axis "
-              "(sequence_parallel_rules with 'data' > 1), "
-              "pure_dp_rules(True)'s sequence over 'pod' and the "
-              "encoder-decoder under wide layouts")
+# what the next slices port (ROADMAP queue 1, items 11b.2 and 11b.3)
+NEXT_SLICE = ("the next slices of the port (ROADMAP queue 1, item 11b.2 "
+              "and item 11b.3): pure_dp_rules(True)'s sequence over 'pod' "
+              "and the encoder-decoder under wide layouts")
 
 # logical axes that split the model: tensor and expert parallelism's,
 # the SSM mixers' and the KV cache's sequence
 MODEL_LOGICAL = ("act_embed", "heads", "kv_heads", "mlp", "expert",
                  "vocab", "ssm_heads", "ssm_inner", "seq_kv")
+# those of the mixers (attention's heads, the SSM's), which may lie on a
+# second wide axis beside the residual's (`sequence_parallel_rules`)
+MIXER_LOGICAL = ("heads", "kv_heads", "ssm_heads", "ssm_inner")
 
 
 def _wide(rules: Rules, k: str, sizes) -> List[str]:
     return [a for a in _names(rules.get(k)) if sizes.get(a, 1) > 1]
 
 
+def _mixer_axes(rules: Rules, sizes, residual) -> List[str]:
+    """The wide mesh axes other than the residual's that the rules put a
+    mixer's logical axis on, in the order they first appear."""
+    out: List[str] = []
+    for k in MIXER_LOGICAL:
+        out += [a for a in _wide(rules, k, sizes)
+                if a not in residual and a not in out]
+    return out
+
+
 def check_ported(rules: Rules, mesh, logical=None):
-    """Raise `NotImplementedError`, naming the next slice, if `rules` put
+    """Raise `NotImplementedError`, naming the next slices, if `rules` put
     one of the logical axes (of `logical`, default all) where the port
     does not go yet: the sequence (`seq`: `pure_dp_rules(True)`) on a
-    mesh axis larger than 1, or a model-parallel axis (`MODEL_LOGICAL`)
-    on a wide mesh axis other than the residual's (`act_embed`'s), or on
-    a batch axis (`sequence_parallel_rules` with "data" > 1 puts the
-    heads and the SSM mixers there).  The port never replicates what the
-    rules shard."""
+    mesh axis larger than 1, a model-parallel axis (`MODEL_LOGICAL`) on
+    a wide batch axis, the residual (`act_embed`) over several wide axes,
+    or a model-parallel axis on a wide axis other than the residual's
+    unless it is a mixer's (`MIXER_LOGICAL`) on one second axis, with no
+    wide batch axis and the K/V heads where the heads are
+    (`sequence_parallel_rules` with "data" > 1).  The port never
+    replicates what the rules shard."""
     sizes = axis_sizes(mesh)
     residual = _wide(rules, "act_embed", sizes)
     batch = set(batch_axes(rules))
+    wide_batch = sorted(a for a in batch if sizes.get(a, 1) > 1)
     if len(residual) > 1 or batch & set(residual):
         raise NotImplementedError(
             f"the rules put the residual ('act_embed') on {residual} with "
             f"the batch on {sorted(batch)}: a residual over several mesh "
-            f"axes or a batch axis comes in {NEXT_SLICE}")
+            f"axes or a batch axis is not ported")
+    mixers = _mixer_axes(rules, sizes, residual)
+    heads, kv = _wide(rules, "heads", sizes), _wide(rules, "kv_heads", sizes)
     for k in (logical if logical is not None else rules):
         if k == "seq":
             wide = _wide(rules, k, sizes)
@@ -383,23 +401,52 @@ def check_ported(rules: Rules, mesh, logical=None):
                     f"{sizes[wide[0]]}: the sequence over a mesh axis "
                     f"comes in {NEXT_SLICE}")
         elif k in MODEL_LOGICAL:
-            other = [a for a in _wide(rules, k, sizes)
-                     if a not in residual or a in batch]
-            if other:
+            wide = _wide(rules, k, sizes)
+            on_batch = [a for a in wide if a in batch]
+            if on_batch:
+                raise NotImplementedError(
+                    f"the rules put {k!r} on the batch axis "
+                    f"{on_batch[0]!r} of size {sizes[on_batch[0]]}: a "
+                    f"model-parallel axis on a wide batch axis is not "
+                    f"ported")
+            other = [a for a in wide if a not in residual]
+            if other and (k not in MIXER_LOGICAL or len(wide) > 1
+                          or len(mixers) > 1 or wide_batch
+                          or (kv and kv != heads)):
                 raise NotImplementedError(
                     f"the rules put {k!r} on mesh axis {other[0]!r} of "
-                    f"size {sizes[other[0]]} and the residual "
-                    f"('act_embed') on {residual or 'no wide axis'}: "
-                    f"model-parallel axes on a second wide mesh axis come "
-                    f"in {NEXT_SLICE}")
+                    f"size {sizes[other[0]]}, the residual ('act_embed') "
+                    f"on {residual or 'no wide axis'}, the mixers' second "
+                    f"axes on {mixers} and the batch on wide axes "
+                    f"{wide_batch}: only the mixers (heads, K/V heads "
+                    f"with them, SSM heads and columns) may take one "
+                    f"second wide axis, and only with no wide batch axis")
 
 
 def model_axis(rules: Rules, mesh) -> Optional[str]:
-    """The mesh axis the model is split over: the residual's
+    """The mesh axis the residual is split over: the residual's
     (`act_embed`'s) if it is larger than 1, else None; a layout the port
     does not run raises (`check_ported`)."""
     check_ported(rules, mesh)
     wide = _wide(rules, "act_embed", axis_sizes(mesh))
+    return wide[0] if wide else None
+
+
+def mixer_axis(rules: Rules, mesh) -> Optional[str]:
+    """The second wide mesh axis that the rules put the mixers on, beside
+    the residual's ("data" under `sequence_parallel_rules` with "data"
+    larger than 1), else None; a layout the port does not run raises
+    (`check_ported`)."""
+    check_ported(rules, mesh)
+    sizes = axis_sizes(mesh)
+    wide = _mixer_axes(rules, sizes, _wide(rules, "act_embed", sizes))
+    return wide[0] if wide else None
+
+
+def wide_axis(rules: Rules, mesh, logical: str) -> Optional[str]:
+    """The mesh axis larger than 1 that `rules` put `logical` on, else
+    None (`check_ported` allows at most one)."""
+    wide = _wide(rules, logical, axis_sizes(mesh))
     return wide[0] if wide else None
 
 

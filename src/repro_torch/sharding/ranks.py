@@ -30,7 +30,10 @@ refuses two ranks on one card):
   all-gather), `all_reduce` (backward: the identity, for a sum of
   partial results that every rank then uses whole) and its conjugate
   `copy_to` (forward: the identity; backward: all-reduce), the entry of
-  a column-parallel product whose input every rank holds whole.  The
+  a column-parallel product whose input every rank holds whole; and
+  `all_gather(..., summed=False)`, whose backward takes the rank's block
+  of its own gradient, for ranks that use the gathered whole the same
+  way (FSDP's gather over a second model axis outside the mixers).  The
   model code holds the residual as blocks, so its projections enter
   through `all_gather`; `copy_to` wraps a sum that every rank holds
   whole and uses only in part (the SSM gate norm's all-reduced mean
@@ -280,6 +283,18 @@ class _AllGather(torch.autograd.Function):
         return _own_block(g, ctx.dim, ctx.group, ctx.n), None, None, None
 
 
+class _AllGatherSame(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, n):
+        ctx.dim, ctx.r, ctx.w = dim, dist.get_rank(group), x.shape[dim]
+        return _cat_blocks(x, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.narrow(ctx.dim, ctx.r * ctx.w, ctx.w).clone(), None, None,
+                None)
+
+
 class _ReduceScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group, n):
@@ -316,12 +331,17 @@ class _CopyTo(torch.autograd.Function):
         return all_sum_(g.clone(), ctx.group), None
 
 
-def all_gather(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+def all_gather(x: torch.Tensor, dim: int, group, n: int,
+               summed: bool = True) -> torch.Tensor:
     """The `n` ranks' blocks `x` concatenated along `dim` (rank g's block
     at g); the backward sums the incoming gradients over the group and
-    gives each rank its block (a reduce-scatter).  `x` itself when n is
-    1."""
-    return x if n == 1 else _AllGather.apply(x, dim, group, n)
+    gives each rank its block (a reduce-scatter), or with `summed` off,
+    for ranks that use the whole the same way (their gradients of it
+    are equal and whole), takes the rank's block of its own.  `x` itself
+    when n is 1."""
+    if n == 1:
+        return x
+    return (_AllGather if summed else _AllGatherSame).apply(x, dim, group, n)
 
 
 def reduce_scatter(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:

@@ -35,10 +35,15 @@ Tensor and expert parallelism over "model" (`base_rules`) and FSDP
 model runs on the blocks (`sharding.tp`) and the gradients stay blocks.
 Each leaf's gradient is summed over the axes on which it is partial and
 then divided by the batch's rank count: the batch axes that do not
-shard it (those that do, FSDP's, were summed by its gather's backward)
-and, for a leaf replicated over the tensor-parallel axis (the norms, a
-router or vocabulary whose dimension does not divide), that axis.  So a
-replicated leaf ends bitwise equal on every rank.  Parameters that are
+shard it (those that do, FSDP's, were summed by its gather's backward);
+for a leaf replicated over the tensor-parallel axis (the norms, a
+router or vocabulary whose dimension does not divide, the mixers'
+weights under `sequence_parallel_rules`), that axis; and for a mixer's
+parameter whole on the mixers' second axis (`sequence_parallel_rules`
+with "data" > 1: the qk-norms, the SSM's b and c projections, K/V or
+SSM heads that do not divide), that axis, where each rank's gradient is
+its heads' part (`sharding.tp`).  So a replicated leaf ends bitwise
+equal on every rank.  Parameters that are
 not DTensors are full and replicated, as under data parallelism alone.
 The error-feedback compressor quantizes each leaf by its largest
 element, which a block does not know, so it takes only full gradients.
@@ -53,9 +58,11 @@ import torch
 
 from ..checkpoint.checkpointer import tree_flatten
 from ..models.api import Model, local_blocks
+from ..models.params import leaves
 from ..optim import adamw
 from ..sharding import axes as ax
 from ..sharding import ranks
+from ..sharding.tp import MIXER_KEY
 
 
 def _value_and_grad(model: Model, params, batch):
@@ -78,11 +85,29 @@ def multi_pod(mesh) -> bool:
 
 
 def opt_shardings(model: Model, mesh, rules: ax.Rules):
-    """The moments' ZeRO-1 shardings: `opt_rules` of `rules` over the
-    parameters' logical axes, as far as their dimensions divide."""
-    return ax.tree_shardings_matched(
-        model.param_axes(), model.spec, mesh,
-        ax.opt_rules(rules, multi_pod(mesh)))
+    """The moments' ZeRO-1 shardings: each parameter's block, its `embed`
+    dimension further split over the data axes of `opt_rules` that the
+    parameter's spec does not use, as far as the dimension divides.
+    Where the parameter's spec uses no data axis this is `opt_rules` of
+    `rules` over its logical axes; under `sequence_parallel_rules`, whose
+    heads take "data", a moment stays a refinement of its parameter's
+    block (`adamw.update` works inside the block)."""
+    zero = ax._names(ax.opt_rules(rules, multi_pod(mesh))["embed"])
+    order = list(ax.axis_sizes(mesh))
+
+    def one(axes, s, pd):
+        used = {a for e in s.spec for a in ax._names(e)}
+        spec = list(s.spec) + [None] * (len(axes) - len(s.spec))
+        if "embed" in axes:
+            d = axes.index("embed")
+            names = sorted(ax._names(spec[d]) + tuple(
+                a for a in zero if a not in used), key=order.index)
+            spec[d] = (tuple(names) if len(names) > 1 else
+                       (names[0] if names else None))
+        return ax.NamedSharding(mesh, ax.divisible_spec(
+            ax.P(*spec), tuple(pd.shape), mesh))
+    return ax.map_axes(one, model.param_axes(),
+                       model.param_shardings(mesh, rules), model.spec)
 
 
 def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
@@ -128,7 +153,10 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
     rows = ax.NamedSharding(mesh, ax.P(ax.batch_axes(rules)))
     group, n = ranks.axis_group(mesh, ax.batch_axes(rules))
     tp_axis = ax.model_axis(rules, mesh)
+    mixer_axis = ax.mixer_axis(rules, mesh)
     shardings, _ = tree_flatten(model.param_shardings(mesh, rules))
+    in_mixer = [MIXER_KEY in path.split("/") for path, _ in
+                leaves(model.spec)]
     sizes = ax.axis_sizes(mesh)
 
     def sharded(s):
@@ -137,16 +165,17 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
         raise NotImplementedError("the error-feedback compressor on "
                                   "gradient blocks")
 
-    def partial_over(s):
-        """The mesh axes over which a leaf of sharding `s` has a partial
-        gradient, in mesh order."""
+    def partial_over(s, mixer):
+        """The mesh axes over which a leaf of sharding `s` (a mixer's
+        parameter if `mixer`) has a partial gradient, in mesh order."""
         spec_axes = {a for e in s.spec for a in ax._names(e)}
         want = [a for a in ax.batch_axes(rules) if a not in spec_axes]
-        if tp_axis is not None and tp_axis not in spec_axes:
-            want.append(tp_axis)
+        for a in (tp_axis, mixer_axis if mixer else None):
+            if a is not None and a not in spec_axes:
+                want.append(a)
         return [a for a in mesh.mesh_dim_names if a in want]
-    reduce_groups = [ranks.axis_group(mesh, partial_over(s))
-                     for s in shardings]
+    reduce_groups = [ranks.axis_group(mesh, partial_over(s, m))
+                     for s, m in zip(shardings, in_mixer)]
 
     def microbatch_order(batch):
         """This rank's rows of each global microbatch, in order."""

@@ -266,13 +266,14 @@ def test_each_moment_block_is_the_opt_rules_embed_block(runs, world, arch):
 
 @pytest.mark.parametrize("world", [2, 4])
 def test_refused_layouts_raise_not_implemented(runs, world):
-    """Tensor parallelism over "model", FSDP and an SSM model under a
-    wide "model" axis now run, and one step's loss is the one-process
-    step's on the same global batch; sequence parallelism over a wide
-    "data" axis and `pure_dp_rules(True)` still raise, naming the next
-    slice."""
+    """Tensor parallelism over "model", FSDP, an SSM model under a wide
+    "model" axis and sequence parallelism over a wide "data" axis now
+    run, and one step's loss is the one-process step's on the same
+    global batch; `pure_dp_rules(True)` still raises, naming the next
+    slices."""
     cases = runs[2][world][0]["refused"]
-    runs_now = {"model axis", "fsdp", "ssm under model"}
+    runs_now = {"model axis", "fsdp", "ssm under model",
+                "sequence parallel"}
     assert len(cases) == {2: 2, 4: 5}[world]
     for name, message, loss, one in cases:
         if name in runs_now:

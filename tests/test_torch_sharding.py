@@ -238,9 +238,10 @@ def test_check_data_parallel_refuses_what_it_would_replicate():
     """`check_ported` (the data-parallel check until tensor parallelism
     and FSDP were ported) passes those layouts, the SSM mixers on the
     residual's wide axis, `decode_32k`'s layout and
-    `sequence_parallel_rules` on a mesh whose "data" axis is 1; it
-    refuses the sequence on a wide mesh axis and model-parallel axes on
-    a second wide one, naming the next slice."""
+    `sequence_parallel_rules` on a mesh whose "data" axis is 1 or wider
+    (the mixers on a second wide axis); it refuses the sequence on a
+    wide mesh axis, naming the next slices, and model-parallel axes on a
+    wide batch axis or on a second wide axis other than the mixers'."""
     dp = StandIn((1, 4, 1))
     dense = ("batch", "seq", "seq_kv", "act_embed", "embed", "heads",
              "kv_heads", "mlp", "vocab")
@@ -254,17 +255,27 @@ def test_check_data_parallel_refuses_what_it_would_replicate():
     ax.check_ported(ax.base_rules(False), StandIn((1, 2, 2)))
     ax.check_ported(decode_32k, StandIn((1, 2, 2)))
     ax.check_ported(ax.sequence_parallel_rules(False), StandIn((1, 1, 2)))
+    ax.check_ported(ax.sequence_parallel_rules(False), dp)
+    ax.check_ported(ax.sequence_parallel_rules(False), StandIn((1, 2, 2)),
+                    ("batch", "ssm_heads"))
     assert ax.model_axis(ax.base_rules(False), StandIn((1, 2, 2))) == \
         "model"
     assert ax.model_axis(ax.pure_dp_rules(False), dp) is None
+    assert ax.mixer_axis(ax.sequence_parallel_rules(False),
+                         StandIn((1, 2, 2))) == "data"
+    assert ax.mixer_axis(ax.base_rules(False), StandIn((1, 2, 2))) is None
     for rules, mesh, logical in (
-            (ax.sequence_parallel_rules(False), dp, None),
-            (ax.sequence_parallel_rules(False), StandIn((1, 2, 2)),
-             ("batch", "ssm_heads")),
-            (ax.pure_dp_rules(True), StandIn((2, 2, 1)), None)):
-        with pytest.raises(NotImplementedError, match="item 11b") as exc:
+            (dict(ax.sequence_parallel_rules(False), batch="data"),
+             StandIn((1, 2, 2)), None),
+            (dict(ax.sequence_parallel_rules(False), mlp="data"),
+             StandIn((1, 2, 2)), ("mlp",)),
+            (dict(ax.sequence_parallel_rules(False), ssm_heads="pod",
+                  ssm_inner="pod"), StandIn((2, 2, 2)), None)):
+        with pytest.raises(NotImplementedError):
             ax.check_ported(rules, mesh, logical)
-        assert ax.NEXT_SLICE in str(exc.value)
+    with pytest.raises(NotImplementedError, match="item 11b") as exc:
+        ax.check_ported(ax.pure_dp_rules(True), StandIn((2, 2, 1)))
+    assert ax.NEXT_SLICE in str(exc.value)
 
 
 def test_shard_is_the_identity_or_refuses():
@@ -276,5 +287,8 @@ def test_shard_is_the_identity_or_refuses():
     assert ax.get_rules() is None and ax.get_mesh() is None
     with ax.use_rules(ax.sequence_parallel_rules(False), StandIn((1, 2, 2))):
         assert ax.shard(x, "batch", "seq", "embed") is x
+        assert ax.shard(x, "batch", "seq_kv", "heads") is x
+    with ax.use_rules(ax.pure_dp_rules(True), StandIn((2, 2, 1))):
+        assert ax.shard(x, "batch", "seq_kv", "act_embed") is x
         with pytest.raises(NotImplementedError):
-            ax.shard(x, "batch", "seq_kv", "heads")
+            ax.shard(x, "batch", "seq", "act_embed")

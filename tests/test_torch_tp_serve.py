@@ -369,16 +369,21 @@ def test_mamba2_loss_and_train_step_match_repro(runs, name):
     assert n_sharded > 0
 
 
-@pytest.mark.parametrize("rules,shape,arch", [
-    (ax.sequence_parallel_rules(False), (1, 2, 2), "jamba-1.5-large-398b"),
-    (ax.pure_dp_rules(True), (2, 2, 1), "qwen3-1.7b"),
-    (ax.base_rules(False), (1, 1, 2), "whisper-small")],
+@pytest.mark.parametrize("rules,shape,arch,raises", [
+    (ax.sequence_parallel_rules(False), (1, 2, 2), "jamba-1.5-large-398b",
+     False),
+    (ax.pure_dp_rules(True), (2, 2, 1), "qwen3-1.7b", True),
+    (ax.base_rules(False), (1, 1, 2), "whisper-small", True)],
     ids=["sequence_parallel_data2", "pure_dp_multi_pod", "encdec_base"])
-def test_next_slice_layouts_still_raise(rules, shape, arch):
-    """The second wide model axis, the sequence over "pod" and the
-    encoder-decoder under a layout wider than the batch raise
-    `NotImplementedError` naming the next slice."""
+def test_next_slice_layouts_still_raise(rules, shape, arch, raises):
+    """The sequence over "pod" and the encoder-decoder under a layout
+    wider than the batch raise `NotImplementedError` naming the next
+    slices; the second wide model axis (`sequence_parallel_rules` with
+    "data" 2, `tests/test_torch_sp_serve.py`) now passes the check."""
     model = build_model(W.smoke(arch), "cpu")
+    if not raises:
+        model.check_layout(rules, stand_in(shape))
+        return
     with pytest.raises(NotImplementedError) as exc:
         model.check_layout(rules, stand_in(shape))
     assert ax.NEXT_SLICE in str(exc.value)

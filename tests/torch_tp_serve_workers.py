@@ -64,13 +64,22 @@ TRAIN = {"base": (2, (1, 1, 2)), "base_dp2": (4, (1, 2, 2))}
 TRAIN_ARCH = "mamba2-2.7b"
 
 
+# qwen3 with 6 q heads over 3 K/V heads: the K/V heads do not divide
+# over a "data" axis of 2, whose ranks' q heads [0, 3) and [3, 6) read
+# the K/V heads [0, 2) and [1, 3), unevenly grouped
+KV3 = "qwen3-kv3"
+
+
 def smoke(arch, flash=True):
-    """The smoke config (the uneven-heads Mamba2 for `UNEVEN`), with the
-    kernels' ops on (their plain versions on the CPU) unless `flash` is
-    off."""
+    """The smoke config (the uneven-heads Mamba2 for `UNEVEN`, qwen3 with
+    3 K/V heads for `KV3`), with the kernels' ops on (their plain
+    versions on the CPU) unless `flash` is off."""
     if arch == UNEVEN:
         cfg = replace(get_smoke_config("mamba2-2.7b"), d_model=48,
                       ssm_headdim=32)
+    elif arch == KV3:
+        cfg = replace(get_smoke_config("qwen3-1.7b"), n_heads=6,
+                      n_kv_heads=3)
     else:
         cfg = get_smoke_config(arch)
     return replace(cfg, use_flash_kernel=flash)
@@ -104,10 +113,11 @@ def cache_blocks(tree, path=""):
              shape)]
 
 
-def serve_prefill(name, arch, device, start, tokens):
-    """`SERVE[name]`'s layout for `arch`: the prefill of this rank's rows
-    of `tokens`.  Returns the state its decode steps go on from."""
-    _, shape, rules, _ = SERVE[name]
+def serve_prefill(name, arch, device, start, tokens, layouts=None):
+    """`layouts[name]`'s layout (default `SERVE`) for `arch`: the prefill
+    of this rank's rows of `tokens`.  Returns the state its decode steps
+    go on from."""
+    _, shape, rules, _ = (layouts or SERVE)[name]
     mesh = make_test_mesh(shape, NAMES, device.type)
     model = build_model(smoke(arch), device)
     params = convert.params_from_numpy(
